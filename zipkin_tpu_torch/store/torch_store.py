@@ -1,0 +1,926 @@
+"""TorchSpanStore — the SpanStore SPI over the torch device store.
+
+The serial write path and the read API of ``zipkin_tpu.store.tpu.
+TpuSpanStore`` on ``store/device.py``: the host owns the dictionaries,
+the index policy bits and the chunking, padding and launch planning;
+one fused ``ingest_step`` per chunk (a loop of them per chained unit)
+updates the device state in place; reads run the index kernels with
+the ring scans as exact fallbacks and fetch only the winners.
+
+The hooks ``_plan_units`` / ``_pad_unit`` / ``_commit_unit`` keep the
+reference's names and contracts. Not ported yet (later slices): the
+ingest pipeline, WAL, eviction capture and cold tier, the sketch mirror
+and query engine, checkpoints, the paged layout, windowed analytics,
+the native thrift fast path, sharding and the daemon.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
+
+import numpy as np
+
+from zipkin_tpu_torch.columnar.dictionary import DictionarySet
+from zipkin_tpu_torch.columnar.encode import SpanCodec, to_signed64
+from zipkin_tpu_torch.columnar.schema import SpanBatch
+from zipkin_tpu_torch.models.constants import CORE_ANNOTATIONS
+from zipkin_tpu_torch.models.dependencies import (
+    Dependencies,
+    DependencyLink,
+    Moments,
+)
+from zipkin_tpu_torch.models.span import Span
+from zipkin_tpu_torch.ops import hll
+from zipkin_tpu_torch.ops import quantile as Q
+from zipkin_tpu_torch.store import device as dev
+from zipkin_tpu_torch.store.base import (
+    MAX_TTL_ENTRIES,
+    IndexedTraceId,
+    PinBank,
+    SpanStore,
+    TraceIdDuration,
+    apply_pin_merges,
+    durations_from_mat,
+    exist_from_duration_mat,
+    fill_pin,
+    gather_with_escalation,
+    index_first_topk,
+    index_gather_with_escalation,
+    index_topk_or_none,
+    prune_ttls,
+    resolve_annotation_query,
+    service_scan_only,
+    should_index,
+    topk_ids_with_escalation,
+)
+
+_BATCH_MIN = 64
+
+
+def _next_pow2(n: int) -> int:
+    p = _BATCH_MIN
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+class IngestUnit(NamedTuple):
+    """One planned launch group, padded (host numpy)."""
+
+    db: dev.DeviceBatch  # stacked along a leading axis when chained
+    n_spans: int
+    n_anns: int
+    n_banns: int
+    n_parts: int
+    chained: bool
+
+
+def resolve_multi_probes(config, dicts, queries):
+    """``get_trace_ids_multi`` queries -> index-bucket probe rows:
+    (results, probes, limits, fallback), as in the reference store."""
+    lay, _, _ = config.cand_layout
+    results = [None] * len(queries)
+    fallback: List[int] = []
+    probes: List[tuple] = []
+    limits = [0] * len(queries)
+    for qi, q in enumerate(queries):
+        if q[0] == "name":
+            _, service, span_name, end_ts, limit = q
+            limits[qi] = limit
+            svc = dicts.services.get(service.lower())
+            if svc is None or limit <= 0:
+                results[qi] = []
+                continue
+            if service_scan_only(svc, config):
+                fallback.append(qi)
+                continue
+            if span_name is not None:
+                name_lc = dicts.span_names.get(span_name.lower())
+                if name_lc is None:
+                    results[qi] = []
+                    continue
+                probes.append((qi, lay[dev.StoreConfig.CAND_NAME], svc,
+                               name_lc, -1, False, False, False, end_ts))
+            else:
+                probes.append((qi, lay[dev.StoreConfig.CAND_SVC], svc, -1,
+                               -1, False, True, False, end_ts))
+        else:
+            _, service, annotation, value, end_ts, limit = q
+            limits[qi] = limit
+            if annotation in CORE_ANNOTATIONS or limit <= 0:
+                results[qi] = []
+                continue
+            svc = dicts.services.get(service.lower())
+            if svc is None:
+                results[qi] = []
+                continue
+            if service_scan_only(svc, config):
+                fallback.append(qi)
+                continue
+            resolved = resolve_annotation_query(dicts, annotation, value)
+            if resolved is None:
+                results[qi] = []
+                continue
+            ann_value, bann_key, bann_value, bann_value2 = resolved
+            if ann_value >= 0 and bann_key >= 0:
+                fallback.append(qi)
+                continue
+            if ann_value >= 0:
+                probes.append((qi, lay[dev.StoreConfig.CAND_ANN], svc,
+                               ann_value, -1, False, False, True, end_ts))
+                continue
+            fam = lay[dev.StoreConfig.CAND_BANN]
+            if bann_value < 0 and bann_value2 < 0:
+                probes.append((qi, fam, svc, bann_key, -1, True, False,
+                               True, end_ts))
+                continue
+            v1 = bann_value if bann_value >= 0 else bann_value2
+            v2 = bann_value2 if bann_value2 >= 0 else bann_value
+            probes.append((qi, fam, svc, bann_key, v1, True, False, True,
+                           end_ts))
+            if v2 != v1:
+                probes.append((qi, fam, svc, bann_key, v2, True, False,
+                               True, end_ts))
+    return results, probes, limits, fallback
+
+
+def build_probe_arrays(config, probes, limits):
+    """Probe rows -> numpy arrays padded to a power-of-two probe count
+    (padding probes match nothing). Returns (arrays, k, k_eff)."""
+    lay, _, _ = config.cand_layout
+    k = max(1, max(limits[p[0]] for p in probes)) * 8
+    n = _next_pow2(len(probes))
+    pad_row = (None, lay[dev.StoreConfig.CAND_SVC], 0, -1, -1, False, True,
+               False, -1)
+    rows = probes + [pad_row] * (n - len(probes))
+    arrs = {
+        "b_base": np.asarray([r[1][0] for r in rows], np.int64),
+        "s_base": np.asarray([r[1][1] for r in rows], np.int64),
+        "n_b": np.asarray([r[1][2] for r in rows], np.int64),
+        "depth": np.asarray([r[1][3] for r in rows], np.int64),
+        "key1": np.asarray([r[2] for r in rows], np.int32),
+        "key2": np.asarray([r[3] for r in rows], np.int32),
+        "key3": np.asarray([r[4] for r in rows], np.int32),
+        "three": np.asarray([r[5] for r in rows], bool),
+        "is_svc": np.asarray([r[6] for r in rows], bool),
+        "poison_on": np.asarray([r[7] for r in rows], bool),
+        "end_ts": np.asarray([r[8] for r in rows], np.int64),
+    }
+    return arrs, k, min(k, max(fam[3] for fam in lay))
+
+
+def gate_multi_probes(probes, limits, per_probe):
+    """Trust gating of batched probes: {query_idx: ids or None}, None
+    meaning the query falls back to its singular path."""
+    by_q: Dict[int, list] = {}
+    for pi, p in enumerate(probes):
+        by_q.setdefault(p[0], []).append(pi)
+    out = {}
+    for qi, pis in by_q.items():
+        cands = []
+        complete = True
+        wm = -(1 << 62)
+        saturated = False
+        win_total = 0
+        for pi in pis:
+            c_, comp_, wm_, sat_ = per_probe[pi]
+            cands.extend(c_)
+            complete = complete and comp_
+            wm = max(wm, wm_)
+            saturated |= sat_
+            win_total += len(c_) + (0 if sat_ else 1)
+        if len(pis) > 1 and saturated:
+            out[qi] = None
+        else:
+            out[qi] = index_topk_or_none(limits[qi], win_total, cands,
+                                         complete, wm)
+    return out
+
+
+def name_lc_ids(batch: SpanBatch, dicts: DictionarySet,
+                cache: Dict[int, int]) -> np.ndarray:
+    """Lowercased span-name dictionary id per span (-1 for empty names)."""
+    out = np.empty(batch.n_spans, np.int32)
+    for i, nid in enumerate(batch.name_id):
+        nid = int(nid)
+        lc = cache.get(nid)
+        if lc is None:
+            name = dicts.span_names.decode(nid)
+            lc = -1 if name == "" else dicts.span_names.encode(name.lower())
+            cache[nid] = lc
+        out[i] = lc
+    return out
+
+
+def mats_to_batch(n_s, n_a, n_b, span_mat, ann_mat, bann_mat):
+    """(SpanBatch, per-row gids) from the gathered stacked matrices."""
+    batch = SpanBatch.empty(n_s, n_a, n_b)
+    for i, col in enumerate(dev.SPAN_MAT_COLS[:-1]):
+        tgt = getattr(batch, col)
+        setattr(batch, col, span_mat[i, :n_s].astype(tgt.dtype))
+    gids = span_mat[len(dev.SPAN_MAT_COLS) - 1, :n_s].astype(np.int64)
+    gid_to_local = {int(g): i for i, g in enumerate(gids)}
+    if n_a:
+        a = {name: ann_mat[i, :n_a]
+             for i, name in enumerate(dev.ANN_MAT_COLS)}
+        batch.ann_span_idx = np.array(
+            [gid_to_local.get(int(g), 0) for g in a["ann_gid"]], np.int32)
+        batch.ann_ts = a["ann_ts"]
+        batch.ann_value_id = a["ann_value_id"].astype(np.int32)
+        batch.ann_service_id = a["ann_service_id"].astype(np.int32)
+        batch.ann_endpoint_id = a["ann_endpoint_id"].astype(np.int32)
+    if n_b:
+        b = {name: bann_mat[i, :n_b]
+             for i, name in enumerate(dev.BANN_MAT_COLS)}
+        batch.bann_span_idx = np.array(
+            [gid_to_local.get(int(g), 0) for g in b["bann_gid"]], np.int32)
+        batch.bann_key_id = b["bann_key_id"].astype(np.int32)
+        batch.bann_value_id = b["bann_value_id"].astype(np.int32)
+        batch.bann_type = b["bann_type"].astype(np.uint8)
+        batch.bann_service_id = b["bann_service_id"].astype(np.int32)
+        batch.bann_endpoint_id = b["bann_endpoint_id"].astype(np.int32)
+    return batch, gids
+
+
+def links_from_bank(bank, services_dict, n_services: int
+                    ) -> List[DependencyLink]:
+    """Decode a [S*S, 5] Moments bank into DependencyLinks."""
+    bank = np.asarray(bank, np.float64)
+    links = []
+    for li in np.flatnonzero(bank[:, 0] > 0):
+        parent, child = divmod(int(li), n_services)
+        if parent >= len(services_dict) or child >= len(services_dict):
+            continue
+        links.append(DependencyLink(
+            services_dict.decode(parent), services_dict.decode(child),
+            Moments.from_central(*bank[li])))
+    return links
+
+
+def dependencies_from_bank(bank, services_dict, n_services: int,
+                           ts_min: float, ts_max: float) -> Dependencies:
+    links = links_from_bank(bank, services_dict, n_services)
+    if not links and ts_min > ts_max:
+        return Dependencies.zero()
+    return Dependencies(float(ts_min), float(ts_max), tuple(links))
+
+
+_SPAN_COLS = ("trace_id", "span_id", "parent_id", "name_id", "service_id",
+              "ts_cs", "ts_cr", "ts_sr", "ts_ss", "ts_first", "ts_last",
+              "duration", "flags")
+_ANN_COLS = ("ann_ts", "ann_value_id", "ann_service_id", "ann_endpoint_id")
+_BANN_COLS = ("bann_key_id", "bann_value_id", "bann_type",
+              "bann_service_id", "bann_endpoint_id")
+
+
+class TorchSpanStore(SpanStore):
+    """SpanStore over the torch device store. ``device`` defaults to
+    ``"cuda"`` and raises when CUDA is missing unless the caller passes
+    ``device="cpu"``."""
+
+    MAX_CHUNK = 4096
+    MAX_TTL_ENTRIES = MAX_TTL_ENTRIES
+    CHAIN_SIZES = (16, 8, 4)
+    SWEEP_EVERY = 64
+    DEFAULT_TTL_S = 1.0
+
+    def __init__(self, config: Optional[dev.StoreConfig] = None,
+                 codec: Optional[SpanCodec] = None, device="cuda"):
+        self.config = config or dev.StoreConfig()
+        self.device = dev.resolve_device(device)
+        self.codec = codec or SpanCodec()
+        self.state = dev.init_state(self.config, self.device)
+        # Writers serialize on _lock; _state_lock guards the in-place
+        # state against a concurrent reader (both re-entrant).
+        self._lock = threading.RLock()
+        self._state_lock = threading.RLock()
+        self._wp = 0
+        self._archived = 0
+        self._batches_since_sweep = 0
+        self._step_seq = 0
+        self._read_epoch = 0
+        self._cblock_memo = None
+        self._svc_scan_memo = None
+        self.ttls: Dict[int, float] = {}
+        self.pins = PinBank()
+        self.anns_truncated = 0
+        self.banns_truncated = 0
+        self.index_hits = 0
+        self.index_fallbacks = 0
+        self._name_lc: Dict[int, int] = {}
+
+    @property
+    def dicts(self) -> DictionarySet:
+        return self.codec.dicts
+
+    # -- writes ---------------------------------------------------------
+
+    def _name_lc_ids(self, batch: SpanBatch) -> np.ndarray:
+        return name_lc_ids(batch, self.dicts, self._name_lc)
+
+    def apply(self, spans: Sequence[Span]) -> None:
+        if not spans:
+            return
+        with self._lock:
+            for span in spans:
+                self.ttls.setdefault(to_signed64(span.trace_id), 1.0)
+            if self.pins:
+                self._read_epoch += 1
+            self.pins.note_write(to_signed64, spans)
+            prune_ttls(self.ttls, self.MAX_TTL_ENTRIES)
+            parts = []
+            for part in self._chunk_by_trace(spans):
+                batch = self.codec.encode(part)
+                indexable = np.fromiter((should_index(s) for s in part),
+                                        bool, len(part))
+                parts.extend(self._chunk_columnar(
+                    batch, self._name_lc_ids(batch), indexable))
+                if len(parts) >= self.CHAIN_SIZES[0]:
+                    self._write_parts(parts)
+                    parts = []
+            if parts:
+                self._write_parts(parts)
+
+    def _chunk_by_trace(self, spans: Sequence[Span]):
+        chunk_size = self._max_chunk_spans()
+        by_trace: Dict[int, List[Span]] = {}
+        for s in spans:
+            by_trace.setdefault(s.trace_id, []).append(s)
+        batch: List[Span] = []
+        for trace_spans in by_trace.values():
+            if batch and len(batch) + len(trace_spans) > chunk_size:
+                yield batch
+                batch = []
+            batch.extend(trace_spans)
+            while len(batch) > chunk_size:
+                yield batch[:chunk_size]
+                batch = batch[chunk_size:]
+        if batch:
+            yield batch
+
+    def _max_chunk_spans(self) -> int:
+        c = self.config
+        limit = c.batch_spans if c.batch_spans > 0 else self.MAX_CHUNK
+        return max(1, min(limit, c.capacity // 2 or 1, c.pending_slots))
+
+    def _chunk_columnar(self, batch: SpanBatch, name_lc: np.ndarray,
+                        indexable: np.ndarray):
+        """Split a columnar batch so every chunk fits the rings."""
+        c = self.config
+        max_spans = self._max_chunk_spans()
+        if (batch.n_spans <= max_spans
+                and batch.n_annotations <= c.ann_capacity
+                and batch.n_binary <= c.bann_capacity):
+            yield batch, name_lc, indexable
+            return
+        start = 0
+        while start < batch.n_spans:
+            stop = min(start + max_spans, batch.n_spans)
+            while stop > start + 1:
+                a_n = int(np.count_nonzero(
+                    (batch.ann_span_idx >= start)
+                    & (batch.ann_span_idx < stop)))
+                b_n = int(np.count_nonzero(
+                    (batch.bann_span_idx >= start)
+                    & (batch.bann_span_idx < stop)))
+                if a_n <= c.ann_capacity and b_n <= c.bann_capacity:
+                    break
+                stop = start + (stop - start) // 2
+            part = self._slice_batch(batch, start, stop)
+            if part.n_annotations > c.ann_capacity:
+                self.anns_truncated += part.n_annotations - c.ann_capacity
+                part = self._truncate_anns(part, c.ann_capacity, False)
+            if part.n_binary > c.bann_capacity:
+                self.banns_truncated += part.n_binary - c.bann_capacity
+                part = self._truncate_anns(part, c.bann_capacity, True)
+            yield part, name_lc[start:stop], indexable[start:stop]
+            start = stop
+
+    @staticmethod
+    def _truncate_anns(batch: SpanBatch, cap: int, binary: bool):
+        import dataclasses
+
+        cols = SpanBatch.BANN_COLUMNS if binary else SpanBatch.ANN_COLUMNS
+        return dataclasses.replace(
+            batch, **{c: getattr(batch, c)[:cap] for c in cols})
+
+    @staticmethod
+    def _slice_batch(batch: SpanBatch, start: int, stop: int) -> SpanBatch:
+        a_sel = (batch.ann_span_idx >= start) & (batch.ann_span_idx < stop)
+        b_sel = (batch.bann_span_idx >= start) & (batch.bann_span_idx < stop)
+        out = SpanBatch.empty(stop - start, int(a_sel.sum()),
+                              int(b_sel.sum()))
+        for col in _SPAN_COLS:
+            setattr(out, col, getattr(batch, col)[start:stop])
+        out.ann_span_idx = batch.ann_span_idx[a_sel] - start
+        for col in _ANN_COLS:
+            setattr(out, col, getattr(batch, col)[a_sel])
+        out.bann_span_idx = batch.bann_span_idx[b_sel] - start
+        for col in _BANN_COLS:
+            setattr(out, col, getattr(batch, col)[b_sel])
+        return out
+
+    def write_batch(self, batch: SpanBatch, indexable: np.ndarray) -> None:
+        """Upload one columnar batch and run the fused ingest step. The
+        batch must fit the rings (``apply`` chunks; callers of this
+        method must)."""
+        c = self.config
+        if (batch.n_spans > min(c.capacity, c.pending_slots)
+                or batch.n_annotations > c.ann_capacity
+                or batch.n_binary > c.bann_capacity):
+            raise ValueError(
+                f"batch ({batch.n_spans} spans / {batch.n_annotations} "
+                f"anns / {batch.n_binary} banns) exceeds ring capacity "
+                f"({min(c.capacity, c.pending_slots)}/{c.ann_capacity}/"
+                f"{c.bann_capacity}); split into smaller batches")
+        with self._lock:
+            self._commit_group([(batch, self._name_lc_ids(batch),
+                                 indexable)])
+
+    def _write_parts(self, parts) -> None:
+        for group in self._plan_units(parts):
+            self._commit_group(group)
+
+    def _commit_group(self, group) -> None:
+        self._commit_unit(self._pad_unit(group))
+
+    def _plan_units(self, parts):
+        """CHAIN_SIZES greedy grouping of chunker parts into launch
+        units; spans bounded by capacity//2 (the bucket-close cadence),
+        side rows by their ring capacities."""
+        c = self.config
+        span_budget = max(1, c.capacity // 2)
+        i = 0
+        n = len(parts)
+        while i < n:
+            took = 1
+            for size in self.CHAIN_SIZES:
+                if i + size > n:
+                    continue
+                group = parts[i:i + size]
+                if (sum(p[0].n_spans for p in group) <= span_budget
+                        and sum(p[0].n_annotations for p in group)
+                        <= max(1, c.ann_capacity)
+                        and sum(p[0].n_binary for p in group)
+                        <= max(1, c.bann_capacity)):
+                    yield group
+                    took = size
+                    break
+            else:
+                yield parts[i:i + 1]
+            i += took
+
+    def _pad_unit(self, group) -> IngestUnit:
+        """Pad one planned group to its pow2 buckets (host numpy);
+        chained groups pad every chunk to the group max and stack."""
+        if len(group) == 1:
+            b, lc, ix = group[0]
+            db = dev.make_device_batch(
+                b, name_lc_id=lc, indexable=ix,
+                pad_spans=_next_pow2(b.n_spans),
+                pad_anns=_next_pow2(b.n_annotations),
+                pad_banns=_next_pow2(b.n_binary))
+            return IngestUnit(db, b.n_spans, b.n_annotations, b.n_binary,
+                              1, False)
+        pad_s = _next_pow2(max(b.n_spans for b, _, _ in group))
+        pad_a = _next_pow2(max(b.n_annotations for b, _, _ in group))
+        pad_b = _next_pow2(max(b.n_binary for b, _, _ in group))
+        dbs = [dev.make_device_batch(b, name_lc_id=lc, indexable=ix,
+                                     pad_spans=pad_s, pad_anns=pad_a,
+                                     pad_banns=pad_b)
+               for b, lc, ix in group]
+        return IngestUnit(
+            dev.stack_device_batches(dbs),
+            sum(b.n_spans for b, _, _ in group),
+            sum(b.n_annotations for b, _, _ in group),
+            sum(b.n_binary for b, _, _ in group), len(group), True)
+
+    def _commit_unit(self, unit: IngestUnit) -> None:
+        """The device commit: bucket-close trigger, the in-place step(s),
+        host mirror bumps and the sweep cadence."""
+        self.ensure_writable()
+        self._maybe_archive(unit.n_spans)
+        if unit.chained:
+            batches = [dev.batch_to_device(b, self.device)
+                       for b in dev.unstack_batches(unit.db)]
+        else:
+            batches = [dev.batch_to_device(unit.db, self.device)]
+        with self._state_lock:
+            dev.ingest_steps(self.state, batches)
+            self._wp += unit.n_spans
+            self._step_seq += 1
+            self._batches_since_sweep += unit.n_parts
+            if self._batches_since_sweep >= self.SWEEP_EVERY:
+                dev.dep_sweep(self.state)
+                self._step_seq += 1
+                self._batches_since_sweep = 0
+
+    def _sweep_pending(self) -> None:
+        self.ensure_writable()
+        with self._state_lock:
+            dev.dep_sweep(self.state)
+            self._step_seq += 1
+            self._batches_since_sweep = 0
+
+    def _maybe_archive(self, incoming: int) -> None:
+        """Close the dependency time bucket once per half ring."""
+        cap = self.config.capacity
+        if self._wp + incoming - self._archived <= cap:
+            return
+        with self._state_lock:
+            dev.dep_close_bucket(self.state)
+            self._step_seq += 1
+            self._batches_since_sweep = 0
+            self._archived = min(self._wp, max(self._wp + incoming - cap,
+                                               self._wp - cap // 2))
+
+    def archive_now(self) -> None:
+        with self._lock, self._state_lock:
+            dev.dep_close_bucket(self.state)
+            self._step_seq += 1
+            self._archived = self._wp
+            self._batches_since_sweep = 0
+
+    # -- TTL / pins -----------------------------------------------------
+
+    def set_time_to_live(self, trace_id: int, ttl_seconds: float) -> None:
+        tid = to_signed64(trace_id)
+        with self._lock:
+            self.ttls[tid] = ttl_seconds
+            self._read_epoch += 1
+            pin = ttl_seconds > self.DEFAULT_TTL_S
+            if not pin:
+                self.pins.unpin(tid)
+        if pin:
+            fill_pin(self.pins, self._lock, tid, lambda: (
+                self.get_spans_by_trace_ids([trace_id]) or [[]])[0])
+            with self._lock:
+                self._read_epoch += 1
+
+    def get_time_to_live(self, trace_id: int) -> float:
+        with self._lock:
+            return self.ttls[to_signed64(trace_id)]
+
+    def write_frontier(self) -> Tuple[int, int]:
+        return (self._step_seq, self._read_epoch)
+
+    # -- id lookups -----------------------------------------------------
+
+    def _svc_id(self, service_name: str) -> Optional[int]:
+        return self.dicts.services.get(service_name.lower())
+
+    @staticmethod
+    def _cands(mat) -> List[Tuple[int, int]]:
+        return [(int(t), int(ts))
+                for t, ts, v in zip(mat[0], mat[1], mat[2]) if v]
+
+    def _index_fetcher(self, call):
+        def fetch(k):
+            with self._state_lock:
+                mat, complete, wm = call(k)
+                mat = _np(mat)
+                complete, wm = bool(complete), int(wm)
+            return self._cands(mat), complete, wm, mat.shape[1]
+        return fetch
+
+    def _scan_fetcher(self, call):
+        def fetch(k):
+            with self._state_lock:
+                mat = _np(call(k))
+            cands = self._cands(mat)
+            return cands, len(cands) >= k
+        return fetch
+
+    def _index_first(self, limit, k_max, index_fetch, scan_fetch):
+        return index_first_topk(limit, k_max, index_fetch, scan_fetch,
+                                stats=self)
+
+    def get_trace_ids_by_name(self, service_name: str,
+                              span_name: Optional[str], end_ts: int,
+                              limit: int, force_scan: bool = False
+                              ) -> List[IndexedTraceId]:
+        svc = self._svc_id(service_name)
+        if svc is None or limit <= 0:
+            return []
+        force_scan = force_scan or service_scan_only(svc, self.config)
+        if span_name is not None:
+            name_lc = self.dicts.span_names.get(span_name.lower())
+            if name_lc is None:
+                return []
+        else:
+            name_lc = -1
+        fetch = self._scan_fetcher(lambda k: dev.query_trace_ids_by_service(
+            self.state, svc, name_lc, end_ts, k))
+        if self.config.use_index and not force_scan:
+            index_fetch = self._index_fetcher(
+                lambda k: dev.iquery_trace_ids_by_service(
+                    self.state, svc, name_lc, end_ts, k))
+            return self._index_first(limit, self.config.ann_capacity,
+                                     index_fetch, fetch)
+        return topk_ids_with_escalation(limit, self.config.ann_capacity,
+                                        fetch)
+
+    def get_trace_ids_by_annotation(self, service_name: str,
+                                    annotation: str, value: Optional[bytes],
+                                    end_ts: int, limit: int,
+                                    force_scan: bool = False
+                                    ) -> List[IndexedTraceId]:
+        if annotation in CORE_ANNOTATIONS or limit <= 0:
+            return []
+        svc = self._svc_id(service_name)
+        if svc is None:
+            return []
+        force_scan = force_scan or service_scan_only(svc, self.config)
+        resolved = resolve_annotation_query(self.dicts, annotation, value)
+        if resolved is None:
+            return []
+        ann_value, bann_key, bann_value, bann_value2 = resolved
+        args = (svc, ann_value, bann_key, bann_value, bann_value2, end_ts)
+        fetch = self._scan_fetcher(
+            lambda k: dev.query_trace_ids_by_annotation(self.state, *args,
+                                                        k))
+        c = self.config
+        k_max = c.ann_capacity + c.bann_capacity
+        mixed = ann_value >= 0 and bann_key >= 0
+        if c.use_index and not mixed and not force_scan:
+            index_fetch = self._index_fetcher(
+                lambda k: dev.iquery_trace_ids_by_annotation(
+                    self.state, *args, k))
+            return self._index_first(limit, k_max, index_fetch, fetch)
+        return topk_ids_with_escalation(limit, k_max, fetch)
+
+    def get_trace_ids_multi(self, queries) -> List[List[IndexedTraceId]]:
+        """Batched index read: every query's bucket probe in one pass;
+        unresolvable keys, mixed names and distrusted buckets drop to
+        the singular paths."""
+        c = self.config
+        if not c.use_index or not queries:
+            return super().get_trace_ids_multi(queries)
+        results, probes, limits, fallback = resolve_multi_probes(
+            c, self.dicts, queries)
+        if probes:
+            arrs, k, k_eff = build_probe_arrays(c, probes, limits)
+            with self._state_lock:
+                mats, completes, wms = (
+                    _np(x) for x in dev.iquery_trace_ids_multi(
+                        self.state, arrs, k))
+            per_probe = []
+            for pi, p in enumerate(probes):
+                cands = self._cands(mats[pi])
+                window_pi = min(k_eff, p[1][3])
+                per_probe.append((cands, bool(completes[pi]),
+                                  int(wms[pi]), len(cands) >= window_pi))
+            for qi, ids in gate_multi_probes(probes, limits,
+                                             per_probe).items():
+                if ids is None:
+                    fallback.append(qi)
+                else:
+                    self.index_hits += 1
+                    results[qi] = ids
+        for qi in fallback:
+            q = queries[qi]
+            if q[0] == "name":
+                results[qi] = self.get_trace_ids_by_name(*q[1:])
+            else:
+                results[qi] = self.get_trace_ids_by_annotation(*q[1:])
+        return [r if r is not None else [] for r in results]
+
+    # -- trace reads ----------------------------------------------------
+
+    @staticmethod
+    def _canon_ids(trace_ids: Sequence[int]) -> Dict[int, int]:
+        return {to_signed64(t): t for t in trace_ids}
+
+    @staticmethod
+    def _sorted_qids(trace_ids: Sequence[int]) -> np.ndarray:
+        return np.unique(np.asarray([to_signed64(t) for t in trace_ids],
+                                    np.int64))
+
+    def _durations_mat(self, qids: np.ndarray,
+                       force_scan: bool = False) -> np.ndarray:
+        with self._state_lock:
+            if self.config.use_index and not force_scan:
+                mat, exact = dev.iquery_durations(self.state, qids)
+                if bool(exact):
+                    return _np(mat)
+            return _np(dev.query_durations(self.state, qids))
+
+    def traces_exist(self, trace_ids: Sequence[int]) -> Set[int]:
+        if not trace_ids:
+            return set()
+        canon = self._canon_ids(trace_ids)
+        qids = self._sorted_qids(trace_ids)
+        mat = self._durations_mat(qids)
+        return exist_from_duration_mat(canon, qids, mat[0], self.pins,
+                                       self._lock)
+
+    def _gather_trace_mats(self, trace_ids: Sequence[int],
+                           force_scan: bool = False):
+        qids = self._sorted_qids(trace_ids)
+        with self._state_lock:
+            st = self.state
+            payload = None
+            if self.config.use_index and not force_scan:
+                def ifetch(k_s, k_a, k_b):
+                    counts, s_m, a_m, b_m, exact = \
+                        dev.iquery_gather_trace_rows(st, qids, k_s, k_a,
+                                                     k_b)
+                    n_s, n_a, n_b = (int(x) for x in _np(counts))
+                    return (bool(exact), n_s, n_a, n_b,
+                            (n_s, n_a, n_b, _np(s_m), _np(a_m), _np(b_m)))
+
+                payload = index_gather_with_escalation(self.config,
+                                                       len(qids), ifetch)
+            if payload is None:
+                def fetch(k_s, k_a, k_b):
+                    counts, s_m, a_m, b_m = dev.gather_trace_rows(
+                        st, qids, k_s, k_a, k_b)
+                    n_s, n_a, n_b = (int(x) for x in _np(counts))
+                    return n_s, n_a, n_b, (n_s, n_a, n_b, _np(s_m),
+                                           _np(a_m), _np(b_m))
+
+                payload = gather_with_escalation(self.config, fetch)
+        return payload
+
+    def get_trace_rows(self, trace_ids: Sequence[int],
+                       force_scan: bool = False) -> List[Tuple[int, Span]]:
+        """Ring rows of the requested traces as (row gid, Span) pairs in
+        insertion order, without pin-bank merging."""
+        if not trace_ids:
+            return []
+        n_s, n_a, n_b, s_m, a_m, b_m = self._gather_trace_mats(
+            trace_ids, force_scan)
+        if n_s == 0:
+            return []
+        batch, gids = mats_to_batch(n_s, n_a, n_b, s_m, a_m, b_m)
+        return [(int(g), s) for g, s in zip(gids, self.codec.decode(batch))]
+
+    def get_spans_by_trace_ids(self, trace_ids: Sequence[int],
+                               force_scan: bool = False) -> List[List[Span]]:
+        if not trace_ids:
+            return []
+        n_s, n_a, n_b, s_m, a_m, b_m = self._gather_trace_mats(
+            trace_ids, force_scan)
+        spans = []
+        if n_s:
+            batch, _ = mats_to_batch(n_s, n_a, n_b, s_m, a_m, b_m)
+            spans = self.codec.decode(batch)
+        by_tid: Dict[int, List[Span]] = {}
+        for span in spans:
+            by_tid.setdefault(span.trace_id, []).append(span)
+        with self._lock:
+            apply_pin_merges(self.pins, by_tid, trace_ids, to_signed64)
+        return [by_tid[to_signed64(tid)] for tid in trace_ids
+                if to_signed64(tid) in by_tid]
+
+    def get_traces_duration(self, trace_ids: Sequence[int],
+                            force_scan: bool = False
+                            ) -> List[TraceIdDuration]:
+        if not trace_ids:
+            return []
+        canon = self._canon_ids(trace_ids)
+        qids = self._sorted_qids(trace_ids)
+        mat = self._durations_mat(qids, force_scan)
+        return durations_from_mat(trace_ids, canon, qids, mat, self.pins,
+                                  self._lock)
+
+    # -- name catalogs --------------------------------------------------
+
+    def get_all_service_names(self) -> Set[str]:
+        with self._state_lock:
+            present = _np(self.state.ann_svc_counts) > 0
+        d = self.dicts.services
+        out = {d.decode(i) for i in np.flatnonzero(present)
+               if i < len(d) and d.decode(i)}
+        S = self.config.max_services
+        n_over = len(d) - S
+        if n_over > 0:
+            pad = 1 << max(0, (n_over - 1)).bit_length()
+            with self._state_lock:
+                pres = _np(dev.overflow_service_presence(self.state, pad))
+            out.update(name for i in np.flatnonzero(pres[:n_over])
+                       if (name := d.decode(S + int(i))))
+        return out
+
+    def _svc_catalog_scan(self, svc: int):
+        key = (svc, self._wp)
+        if self._svc_scan_memo is not None and self._svc_scan_memo[0] == key:
+            return self._svc_scan_memo[1]
+        with self._state_lock:
+            rows = tuple(_np(r) for r in dev.svc_scan_catalog(self.state,
+                                                               svc))
+        self._svc_scan_memo = (key, rows)
+        return rows
+
+    def get_span_names(self, service: str) -> Set[str]:
+        svc = self._svc_id(service)
+        if svc is None:
+            return set()
+        if service_scan_only(svc, self.config):
+            row = self._svc_catalog_scan(svc)[0] > 0
+        else:
+            with self._state_lock:
+                row = _np(self.state.name_presence[svc]) > 0
+        d = self.dicts.span_names
+        return {d.decode(i) for i in np.flatnonzero(row)
+                if i < len(d) and d.decode(i)}
+
+    # -- analytics ------------------------------------------------------
+
+    def get_dependencies(self, start_ts: Optional[int] = None,
+                         end_ts: Optional[int] = None) -> Dependencies:
+        """DependencyLinks from the banks + the open window, after a
+        pending sweep; with a window, only banks overlapping it."""
+        if self._batches_since_sweep:
+            with self._lock:
+                if self._batches_since_sweep:
+                    self._sweep_pending()
+        S = self.config.max_services
+        k = min(S * S, 1 << 14)
+        with self._state_lock:
+            st = self.state
+            if start_ts is None and end_ts is None:
+                bank = dev.total_dep_moments(st)
+                lo, hi = int(st.ts_min), int(st.ts_max)
+            else:
+                s = dev.I64_MIN if start_ts is None else int(start_ts)
+                e = dev.I64_MAX if end_ts is None else int(end_ts)
+                bank = dev.dep_moments_in_range(st, s, e)
+                lo, hi = max(int(st.ts_min), s), min(int(st.ts_max), e)
+            nz, idx, rows = dev.compact_bank(bank, k)
+            if int(nz) > k:
+                full = _np(bank)
+            else:
+                full = np.zeros((S * S, bank.shape[1]), np.float32)
+                full[_np(idx)] = _np(rows)
+        return dependencies_from_bank(full, self.dicts.services, S,
+                                      float(lo), float(hi))
+
+    def service_duration_quantiles(self, service: str, qs: Sequence[float]
+                                   ) -> Optional[List[float]]:
+        svc = self._svc_id(service)
+        if svc is None:
+            return None
+        if service_scan_only(svc, self.config):
+            counts = self._svc_catalog_scan(svc)[1]
+        else:
+            with self._state_lock:
+                counts = _np(self.state.svc_hist[svc])
+        return Q.quantiles_host(counts, self.config.gamma, 1.0, qs)
+
+    def _top_row(self, service: str, leaf: str, col: int, dictionary,
+                 k: int) -> List[Tuple[str, int]]:
+        svc = self._svc_id(service)
+        if svc is None:
+            return []
+        if service_scan_only(svc, self.config):
+            row = self._svc_catalog_scan(svc)[col]
+        else:
+            with self._state_lock:
+                row = _np(self.state.leaves[leaf][svc])
+        order = np.argsort(-row)[:k]
+        return [(dictionary.decode(int(i)), int(row[i])) for i in order
+                if row[i] > 0 and i < len(dictionary)]
+
+    def top_annotations(self, service: str, k: int = 10
+                        ) -> List[Tuple[str, int]]:
+        return self._top_row(service, "ann_value_counts", 2,
+                             self.dicts.annotations, k)
+
+    def top_binary_keys(self, service: str, k: int = 10
+                        ) -> List[Tuple[str, int]]:
+        return self._top_row(service, "bann_key_counts", 3,
+                             self.dicts.binary_keys, k)
+
+    def estimated_unique_traces(self) -> float:
+        with self._state_lock:
+            regs = _np(self.state.hll_traces)
+        return hll.estimate(regs)
+
+    def counter_block(self) -> Dict[str, int]:
+        """The device counter block, memoized per state mutation."""
+        memo = self._cblock_memo
+        if memo is not None and memo[0] == self._step_seq:
+            return memo[1]
+        with self._state_lock:
+            vec = _np(dev.counter_block(self.state))
+        blk = {n: int(v) for n, v in zip(dev.COUNTER_BLOCK_FIELDS, vec)}
+        self._cblock_memo = (self._step_seq, blk)
+        return blk
+
+    def counters(self) -> Dict[str, float]:
+        out = {k: float(v) for k, v in self.counter_block().items()}
+        out["anns_truncated"] = float(self.anns_truncated)
+        out["banns_truncated"] = float(self.banns_truncated)
+        out["index_hits"] = float(self.index_hits)
+        out["index_scan_fallbacks"] = float(self.index_fallbacks)
+        out["batch_spans_limit"] = float(self._max_chunk_spans())
+        return out
+
+    def stored_span_count(self) -> float:
+        return float(self.counter_block()["spans_seen"])
