@@ -4,21 +4,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the two CUDA kernels from ``zipkin_tpu_torch/csrc`` (one nvcc
-per source, started together), then
+It builds the three CUDA kernels from ``zipkin_tpu_torch/csrc`` (one
+nvcc per source, started together), then
 
-1. drives the store's main path at full width: a ``TorchSpanStore`` at
-   the 1k-service / 2^22-span-ring configuration with the kernels on
+1. drives the ring store's main path at full width: a ``TorchSpanStore``
+   at the 1k-service / 2^22-span-ring configuration with the kernels on
    streams >= 1.25 x 2^22 generated spans through ``write_batch`` (the
    span ring wraps, index buckets displace entries), applies ~2000
-   known traces and queries them with known answers; both kernels'
-   launch counters, zeroed just before the drive, must have advanced;
-2. holds each kernel against its plain PyTorch twin, bitwise, on the
-   inputs the main path's first step gave it (recorded during the
-   drive), plus an in-batch bucket overflow for the arena kernel, and
-   times kernel, twin and a one-call PyTorch yardstick;
-3. runs the same stream at capacity 2^14 (same widths) on the card and
-   on the CPU (plain twins) and requires equal states.
+   known traces and queries them with known answers; the flat-histogram
+   and arena kernels' launch counters, zeroed just before the drive,
+   must have advanced;
+2. drives the paged layout the same way (128-row pages, 32,768 pages):
+   >= 39 launches so the page pool runs out and pages are reclaimed,
+   then the known traces plus 32 big traces (exclusive, multi-page
+   chains) and one trace past ``page_max_chain`` (its read takes the
+   ring-scan fallback); all three kernels must have launched;
+3. holds each kernel against its plain PyTorch twin, bitwise, on inputs
+   the paths gave it (recorded during the drives), plus an in-batch
+   bucket overflow for the arena kernel and hole pages for the page
+   gather, and times kernel, twin and a one-call PyTorch yardstick;
+4. runs each layout's stream at capacity 2^14 (same widths) on the card
+   and on the CPU (plain twins) and requires equal states (and, paged,
+   equal planner snapshots).
 
 It fails on any phase failure and catches none. The line before the
 last is the kernels JSON; the last line is the device JSON. Without a
@@ -53,12 +60,13 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def full_config(dev, capacity_log2: int, n_services: int):
+def full_config(dev, capacity_log2: int, n_services: int, **layout):
     """The reference bench's _tpu_config(capacity_log2, n_services,
     use_pallas=True): 1k services, 2048 span names, 4096 annotation
     values, 1024 binary keys, CMS 4x2^16, HLL p=14, 2048 quantile
     buckets; name index 2^16x256, key table 2^23 and 64 dependency
-    banks at capacity >= 2^20."""
+    banks at capacity >= 2^20. ``layout`` adds the paged layout's
+    fields (the daemon's ``--layout paged --page-rows R``)."""
     big = capacity_log2 >= 20
     return dev.StoreConfig(
         capacity=1 << capacity_log2,
@@ -72,7 +80,13 @@ def full_config(dev, capacity_log2: int, n_services: int):
         idx_name_depth=256 if big else 0,
         idx_key_slots=(1 << 23) if big else 0,
         dep_buckets=64 if big else 16,
+        **layout,
     )
+
+
+def paged_layout(scale) -> dict:
+    return dict(layout="paged", page_rows=128,
+                page_max_chain=scale.page_max_chain)
 
 
 class Scale:
@@ -81,14 +95,24 @@ class Scale:
         if rehearse:
             self.cap_log2, self.services, self.names = 10, 40, 64
             self.batch_traces, self.stream_spans = 64, 4 * (1 << 10)
-            self.known, self.small_log2, self.small_batches = 60, 9, 6
+            self.known, self.small_log2, self.small_batches = 60, 10, 20
             self.small_traces = 16
+            # Paged: 32 pages (a smaller pool cannot hold the known set),
+            # a chain bound of 3 pages so a 400-span trace overflows it.
+            self.paged_cap_log2, self.paged_launches = 12, 20
+            self.page_max_chain, self.n_big = 3, 6
+            self.big_min, self.big_max, self.overflow_spans = 64, 200, 400
         else:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
             self.stream_spans = (5 * (1 << 22)) // 4
             self.known, self.small_log2, self.small_batches = 2000, 14, 24
             self.small_traces = 512
+            # 39 launches = 4,472,832 spans > 2^22: the pool runs out.
+            self.paged_cap_log2, self.paged_launches = 22, 39
+            self.page_max_chain, self.n_big = 64, 32
+            self.big_min, self.big_max = 200, 4000
+            self.overflow_spans = 20000  # > 64 pages x 128 rows
 
 
 # ---------------------------------------------------------------------------
@@ -117,34 +141,73 @@ def time_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-class Recorder:
-    """Wraps the kernels module's two wrappers to keep a copy of the
-    inputs of the main path's first step (seven flat-histogram call
-    sites, one arena write); the kernel then runs as usual and counts
-    its launch."""
+def device_ms(torch, fn, kernel: str, reps: int = 10):
+    """Mean device milliseconds of the kernels named ``*kernel*`` in one
+    ``fn`` call (torch.profiler's CUDA activity): no host launch gaps,
+    and a 256 MB write between calls so each starts with the 50 MB L2
+    cold, as a read on the store finds it. "not measured" off the card."""
+    if not torch.cuda.is_available():
+        return "not measured"
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    def __init__(self, K):
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kernel in e.name)
+    return busy / reps / 1e3
+
+
+class Recorder:
+    """Wraps the kernels module's three wrappers to keep a copy of their
+    inputs on a path (the first step's seven flat-histogram call sites
+    and arena write; the page gather call with the most pages, by
+    reference to the state's columns); the kernel then runs as usual
+    and counts its launch."""
+
+    def __init__(self, K, record=("hist", "arena")):
         self.K = K
-        self.hist, self.arena = [], []
-        self._orig = (K.histogram_update, K.arena_claim_scatter)
+        self.hist, self.arena, self.gather = [], [], None
+        self._orig = (K.histogram_update, K.arena_claim_scatter,
+                      K.paged_page_gather)
 
         def hist(counts, idx, weights):
-            if len(self.hist) < 7:
+            if "hist" in record and len(self.hist) < 7:
                 self.hist.append((counts.clone(), idx.clone(),
                                   weights.clone()))
             return self._orig[0](counts, idx, weights)
 
         def arena(entries, *args, n_buckets):
-            if not self.arena:
+            if "arena" in record and not self.arena:
                 self.arena.append((entries.clone(),
                                    tuple(a.clone() for a in args),
                                    n_buckets))
             return self._orig[1](entries, *args, n_buckets=n_buckets)
 
+        def gather(cols, pages, page_rows):
+            if "gather" in record and (
+                    self.gather is None
+                    or pages.numel() > self.gather[1].numel()):
+                self.gather = (list(cols), pages.clone(), page_rows)
+            return self._orig[2](cols, pages, page_rows)
+
         K.histogram_update, K.arena_claim_scatter = hist, arena
+        K.paged_page_gather = gather
 
     def restore(self):
-        self.K.histogram_update, self.K.arena_claim_scatter = self._orig
+        (self.K.histogram_update, self.K.arena_claim_scatter,
+         self.K.paged_page_gather) = self._orig
+
+
+def sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -223,72 +286,87 @@ def profile_steps(torch, store, gen, scale):
     return out
 
 
-def main_path(torch, K, dev, scale, device):
-    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
-    from zipkin_tpu_torch.tracegen import ColumnarTraceGen, generate_traces
-
-    cfg = full_config(dev, scale.cap_log2, scale.services)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    store = TorchSpanStore(cfg, device=device.type)
-    gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
-                           n_span_names=scale.names, topology=True, seed=1)
-    rec = Recorder(K)
-    K.reset_launches()
+def stream(torch, store, gen, scale, n_launches: int, device):
+    """``n_launches`` generated batches through ``write_batch``, each
+    synchronised: (spans written, per-launch seconds, wall seconds)."""
     t0 = time.perf_counter()
     written = 0
     step_s = []
-    while written < scale.stream_spans:
+    for _ in range(n_launches):
         batch, _, indexable = gen.next_batch(scale.batch_traces)
         ts = time.perf_counter()
         store.write_batch(batch, indexable)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        sync(torch, device)
         step_s.append(time.perf_counter() - ts)
         written += batch.n_spans
-    stream_s = time.perf_counter() - t0
-    profile = None
-    if scale.profile_steps:
-        profile = profile_steps(torch, store, gen, scale)
-        written += scale.profile_steps * scale.batch_traces * 7
+    return written, step_s, time.perf_counter() - t0
+
+
+def known_traces(scale):
+    """The ~2000 generate_traces traces on the stream's names."""
+    from zipkin_tpu_torch.tracegen import generate_traces
+
     rng = np.random.default_rng(2)
     traces = generate_traces(n_traces=scale.known, max_depth=3,
                              n_services=10, rng=rng,
                              base_ts=4_000_000_000_000)
     names = [f"svc-{i:04d}" for i in range(min(10, scale.services))]
     ops = [f"op-{i:04d}" for i in range(min(50, scale.names))]
-    traces = [rename_services(t, names, ops) for t in traces]
-    known = [s for t in traces for s in t]
-    store.apply(known)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    rec.restore()
-    cb = store.counter_block()
-    log(f"main path: {written} spans streamed in {len(step_s)} launches, "
-        f"{stream_s:.3f} s; ring laps {cb['ring_laps']}; launches "
-        f"{launches}")
-    for name, n in launches.items():
-        if n <= 0 and device.type == "cuda":
-            fail(f"kernel {name} was not launched on the main path")
-    if cb["ring_laps"] < 1:
-        fail("the span ring did not wrap")
+    return [rename_services(t, names, ops) for t in traces], names
 
-    # -- known-answer queries -------------------------------------------
+
+def big_traces(scale, names):
+    """``scale.n_big`` traces of zipf sizes in [big_min, big_max] (each
+    >= page_rows / 2 spans, so they take exclusive, multi-page chains)
+    and one trace of ``overflow_spans`` spans, past page_max_chain
+    pages: the shape of tests/test_paged.py's traces, on the stream's
+    service and span names."""
+    from zipkin_tpu_torch.models.span import (Annotation, BinaryAnnotation,
+                                              Endpoint, Span)
+
+    rng = np.random.default_rng(4)
+    sizes = np.clip(scale.big_min * rng.zipf(1.6, scale.n_big),
+                    scale.big_min, scale.big_max)
+    sizes = list(sizes) + [scale.overflow_spans]
+    out = []
+    for i, n in enumerate(sizes):
+        tid = 7_000_000_000 + i
+        ep = Endpoint(10, 80, names[i % len(names)])
+        t0 = 4_100_000_000_000 + i * 1_000_000
+        out.append([Span(tid, f"op-{j % 4:04d}", tid * 100_000 + j + 1, None,
+                         (Annotation(t0 + j, "sr", ep),
+                          Annotation(t0 + j + 7, "ss", ep)),
+                         (BinaryAnnotation("k", b"v", host=ep),))
+                    for j in range(int(n))])
+    return out[:-1], out[-1]
+
+
+def known_answer_reads(store, traces, big, overflow, names, gen):
+    """Round-trip every known trace (batches of 250; the overflowed
+    trace alone), by-service and by-annotation lookups, the catalogs,
+    dependencies and the HLL estimate. Returns the per-query ms."""
     lat = []
 
     def q(fn, *a):
         t = time.perf_counter()
         out = fn(*a)
-        lat.append((time.perf_counter() - t) * 1e3)
+        n = len(a[0]) if a and isinstance(a[0], list) else None
+        lat.append(((time.perf_counter() - t) * 1e3,
+                    fn.__name__ + (f"[{n} ids]" if n else "")))
         return out
 
+    small = [s for t in traces for s in t]
+    known = small + [s for t in big + ([overflow] if overflow else [])
+                     for s in t]
     by_tid = {}
     for s in known:
         by_tid.setdefault(s.trace_id, []).append(s)
     tids = list(by_tid)
-    for i in range(0, len(tids), 250):
-        chunk = tids[i:i + 250]
+    batches = [tids[i:i + 250] for i in range(0, len(tids), 250)]
+    if overflow:
+        last = overflow[0].trace_id
+        batches = [[t for t in b if t != last] for b in batches] + [[last]]
+    for chunk in batches:
         got = q(store.get_spans_by_trace_ids, chunk)
         if len(got) != len(chunk):
             fail(f"{len(chunk) - len(got)} known traces missing")
@@ -296,11 +374,17 @@ def main_path(torch, K, dev, scale, device):
             if sorted(map(repr, spans)) != sorted(map(repr, by_tid[tid])):
                 fail(f"trace {tid} did not round-trip")
     known_set = set(tids)
-    hosted = {}
-    for s in known:
-        for a in s.annotations:
-            if a.host is not None:
-                hosted.setdefault(a.host.service_name, set()).add(s.trace_id)
+
+    def hosted_by(spans):
+        out = {}
+        for s in spans:
+            for a in s.annotations:
+                if a.host is not None:
+                    out.setdefault(a.host.service_name, set()).add(
+                        s.trace_id)
+        return out
+
+    hosted, hosted_small = hosted_by(known), hosted_by(small)
     end = 2**62
     limit = 20
     for svc in names:
@@ -312,6 +396,7 @@ def main_path(torch, K, dev, scale, device):
         if not got <= expected or len(got) != min(limit, len(expected)):
             fail(f"by-service lookup for {svc}: {len(got)} known of "
                  f"{len(expected)} expected")
+        expected = hosted_small.get(svc, set())
         for ann, val in (("some custom annotation", None),
                          ("http.uri", b"/api/widgets")):
             ids = {t.trace_id for t in q(store.get_trace_ids_by_annotation,
@@ -345,27 +430,149 @@ def main_path(torch, K, dev, scale, device):
     est = q(store.estimated_unique_traces)
     if abs(est - distinct) > 0.05 * distinct:
         fail(f"HLL estimate {est:.0f} vs {distinct} distinct traces")
+    return lat
+
+
+def check_launches(launches, names, device, path):
+    for name in names:
+        if launches[name] <= 0 and device.type == "cuda":
+            fail(f"kernel {name} was not launched on the {path} path")
+
+
+def path_result(torch, store, scale, written, step_s, stream_s, lat,
+                launches, device):
     counters = store.counters()
     mem = (torch.cuda.max_memory_allocated() if device.type == "cuda"
            else 0)
     steady = step_s[1:] or step_s
-    result = {
+    ms = [t for t, _ in lat]
+    return {
         "spans_streamed": written, "launches": len(step_s),
         "batch_spans": scale.batch_traces * 7,
         "ingest_spans_per_s": written / stream_s,
         "ingest_spans_per_s_after_first": (
-            sum(scale.batch_traces * 7 for _ in steady) / sum(steady)),
+            scale.batch_traces * 7 * len(steady) / sum(steady)),
         "first_launch_s": step_s[0],
-        "query_p50_ms": float(np.percentile(lat, 50)),
-        "query_p99_ms": float(np.percentile(lat, 99)),
-        "queries": len(lat), "index_hits": counters["index_hits"],
+        "query_p50_ms": float(np.percentile(ms, 50)),
+        "query_p99_ms": float(np.percentile(ms, 99)),
+        "queries": len(lat),
+        "slowest_queries_ms": sorted(lat, reverse=True)[:5],
+        "index_hits": counters["index_hits"],
         "index_scan_fallbacks": counters["index_scan_fallbacks"],
         "max_memory_allocated_bytes": mem,
-        "idle_share": (profile["idle_share"] if profile
-                       else "not measured"),
         "kernel_launches": launches,
     }
-    log("main path result: " + json.dumps(result))
+
+
+def main_path(torch, K, dev, scale, device):
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    cfg = full_config(dev, scale.cap_log2, scale.services)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    store = TorchSpanStore(cfg, device=device.type)
+    gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
+                           n_span_names=scale.names, topology=True, seed=1)
+    rec = Recorder(K)
+    K.reset_launches()
+    n_launches = -(-scale.stream_spans // (scale.batch_traces * 7))
+    written, step_s, stream_s = stream(torch, store, gen, scale,
+                                       n_launches, device)
+    profile = None
+    if scale.profile_steps:
+        profile = profile_steps(torch, store, gen, scale)
+        written += scale.profile_steps * scale.batch_traces * 7
+    traces, names = known_traces(scale)
+    store.apply([s for t in traces for s in t])
+    sync(torch, device)
+    launches = dict(K.LAUNCHES)
+    rec.restore()
+    cb = store.counter_block()
+    log(f"ring path: {written} spans streamed in {len(step_s)} launches, "
+        f"{stream_s:.3f} s; ring laps {cb['ring_laps']}; launches "
+        f"{launches}")
+    check_launches(launches, ("flat_histogram", "arena_claim_scatter"),
+                   device, "ring")
+    if cb["ring_laps"] < 1:
+        fail("the span ring did not wrap")
+    lat = known_answer_reads(store, traces, [], None, names, gen)
+    result = path_result(torch, store, scale, written, step_s, stream_s,
+                         lat, launches, device)
+    result["idle_share"] = (profile["idle_share"] if profile
+                            else "not measured")
+    log("ring path result: " + json.dumps(result))
+    del store
+    return rec, result
+
+
+def paged_path(torch, K, dev, scale, device):
+    """The paged layout at full width: stream past the page pool, then
+    the known set with big and chain-overflowed traces."""
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    cfg = full_config(dev, scale.paged_cap_log2, scale.services,
+                      **paged_layout(scale))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    store = TorchSpanStore(cfg, device=device.type)
+    planner = store._planner
+    plan_s = []
+    plan_unit = planner.plan_unit
+
+    def timed_plan(*a, **kw):
+        t = time.perf_counter()
+        out = plan_unit(*a, **kw)
+        plan_s.append(time.perf_counter() - t)
+        return out
+
+    planner.plan_unit = timed_plan
+    gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
+                           n_span_names=scale.names, topology=True, seed=1)
+    rec = Recorder(K, record=("gather",))
+    K.reset_launches()
+    written, step_s, stream_s = stream(torch, store, gen, scale,
+                                       scale.paged_launches, device)
+    stream_plan_s = list(plan_s)
+    reclaims_stream = planner.stats()["page_reclaims"]
+    traces, names = known_traces(scale)
+    big, overflow = big_traces(scale, names)
+    store.apply([s for t in traces + big + [overflow] for s in t])
+    sync(torch, device)
+    if planner.chains_for([overflow[0].trace_id]) is not None:
+        fail("the overflow trace kept a page chain")
+    lat = known_answer_reads(store, traces, big, overflow, names, gen)
+    sync(torch, device)
+    launches = dict(K.LAUNCHES)
+    rec.restore()
+    counters = store.counters()
+    log(f"paged path: {written} spans streamed in {len(step_s)} launches, "
+        f"{stream_s:.3f} s; {counters['page_reclaims_total']:.0f} page "
+        f"reclaims; launches {launches}")
+    check_launches(launches, tuple(K.SOURCES), device, "paged")
+    if counters["page_reclaims_total"] <= 0 or reclaims_stream <= 0:
+        fail("the paged stream reclaimed no page")
+    result = path_result(torch, store, scale, written, step_s, stream_s,
+                         lat, launches, device)
+    steady_plan = stream_plan_s[1:] or stream_plan_s
+    result.update({
+        "pages": cfg.n_pages, "page_rows": cfg.page_rows,
+        "page_reclaims_stream": reclaims_stream,
+        "page_reclaims_total": counters["page_reclaims_total"],
+        "pages_active": counters["pages_active"],
+        "planner_s_stream": sum(stream_plan_s),
+        "planner_s_max_launch": max(stream_plan_s),
+        "planner_s_share_after_first": (
+            sum(steady_plan) / sum(step_s[1:] or step_s)),
+        "planner_s_known_apply": sum(plan_s) - sum(stream_plan_s),
+        "step_s_per_launch": step_s, "planner_s_per_launch": stream_plan_s,
+        "big_trace_spans": [len(t) for t in big],
+        "overflow_trace_spans": len(overflow),
+        "gather_pages_max": int(rec.gather[1].numel()) if rec.gather else 0,
+    })
+    log("paged path result: " + json.dumps(result))
     del store
     return rec, result
 
@@ -392,11 +599,14 @@ def hist_phase(torch, K, rec):
             flat.index_put_((i64[ok],), w[ok], accumulate=True)
 
         lib = time_ms(torch, library)
+        dev_ms = device_ms(torch, lambda: K.histogram_update(scratch, idx,
+                                                             w), "hist_")
         ok = (i64 >= 0) & (i64 < flat.shape[0])
         touched = int(torch.unique(i64[ok]).numel())
         nbytes = idx.numel() * 8 + touched * 8
         rows.append({"site": i, "cells": counts.numel(),
                      "rows": idx.numel(), "touched": touched, "ms": ms,
+                     "device_ms": dev_ms,
                      "plain_ms": plain, "library_ms": lib,
                      "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
                      "max_abs_err": err})
@@ -441,6 +651,8 @@ def arena_phase(torch, K, rec):
         scratch, *args, n_buckets=n_b), reps=5)
     plain = time_ms(torch, lambda: K.arena_claim_scatter_plain(
         scratch, *args, n_b), reps=5)
+    dev_ms = device_ms(torch, lambda: K.arena_claim_scatter(
+        scratch, *args, n_buckets=n_b), "arena_", reps=5)
     rank = K.fifo_ranks(bucket, valid, n_b)
     bl = bucket.long()
     cnt = torch.zeros(n_b + 1, dtype=torch.int32, device=bucket.device)
@@ -459,24 +671,91 @@ def arena_phase(torch, K, rec):
     nbytes = n * (5 * 4 + 24) + survivors * 24
     row = {"arena_rows": entries.shape[0], "rows": n, "buckets": n_b,
            "survivors": survivors, "cases": out, "ms": ms,
+           "device_ms": dev_ms,
            "plain_ms": plain, "library_ms": lib,
            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "max_abs_err": 0}
     log("arena_claim_scatter: " + json.dumps(row))
     return row
 
 
-def parity_phase(torch, dev, scale):
+def gather_phase(torch, K, rec):
+    """K3 against its twin on the paged reads' largest page list and on
+    that list with hole pages (front, middle, past the last page, end);
+    times kernel, twin and ``torch.index_select`` on a pre-stacked
+    [14, capacity] int64 matrix (the stack itself not timed)."""
+    if rec.gather is None:
+        fail("no paged_page_gather call was recorded")
+    cols, pages, R = rec.gather
+    n_pages = cols[0].numel() // R
+    mid = pages.numel() // 2
+    hole = torch.tensor([-1], dtype=torch.int32, device=pages.device)
+    past = torch.tensor([n_pages], dtype=torch.int32, device=pages.device)
+    holed = torch.cat([hole, pages[:mid], hole, past, pages[mid:], hole])
+    for label, pg in (("main-path read", pages), ("hole pages", holed)):
+        want = K.paged_page_gather_plain(cols, pg, R)
+        got = K.paged_page_gather(cols, pg, R)
+        if not torch.equal(got, want):
+            err = int((got - want).abs().max())
+            fail(f"paged_page_gather ({label}) disagrees (max err {err})")
+    ms = time_ms(torch, lambda: K.paged_page_gather(cols, pages, R),
+                 reps=20)
+    plain = time_ms(torch, lambda: K.paged_page_gather_plain(cols, pages,
+                                                             R), reps=20)
+    dev_ms = device_ms(torch, lambda: K.paged_page_gather(cols, pages, R),
+                       "page_gather", reps=20)
+    mat = torch.stack([c.to(torch.int64) for c in cols])
+    slots = (torch.clamp(pages.long(), 0, n_pages - 1)[:, None] * R
+             + torch.arange(R, device=pages.device)[None, :]).reshape(-1)
+    lib = time_ms(torch, lambda: torch.index_select(mat, 1, slots),
+                  reps=20)
+    del mat
+    k = pages.numel()
+    k_real = int(((pages >= 0) & (pages < n_pages)).sum())
+    read_b = k_real * R * sum(c.element_size() for c in cols)
+    write_b = k * R * len(cols) * 8
+    row = {"pages": k, "live_pages": k_real, "page_rows": R,
+           "columns": len(cols), "capacity": cols[0].numel(),
+           "cases": ["main-path read", "hole pages"], "ms": ms,
+           "device_ms": dev_ms,
+           "plain_ms": plain, "library_ms": lib,
+           "bound_ms": (read_b + write_b) / H100_BYTES_PER_S * 1e3,
+           "bytes": read_b + write_b, "max_abs_err": 0}
+    log("paged_page_gather: " + json.dumps(row))
+    return row
+
+
+def _check_states_equal(a, b, what):
+    float_leaves = ("dep_window", "dep_moments", "dep_banks")
+    for k, ref in a.items():
+        got = b[k]
+        if k == "counters":
+            if {c: int(v) for c, v in ref.items()} != {
+                    c: int(v) for c, v in got.items()}:
+                fail(f"{what}: counters differ")
+        elif k in float_leaves:
+            ref64, got64 = ref.astype(np.float64), got.astype(np.float64)
+            scale_ = np.abs(ref64).reshape(-1, ref64.shape[-1]).max(0)
+            if not (np.array_equal(ref64[..., 0], got64[..., 0])
+                    and np.all(np.abs(ref64 - got64)
+                               <= 1e-5 * (np.abs(ref64) + scale_))):
+                fail(f"{what}: {k} differs beyond float32 tolerance")
+        elif not np.array_equal(ref, got):
+            fail(f"{what}: {k} differs in {int((ref != got).sum())} cells")
+
+
+def parity_phase(torch, dev, scale, rehearse: bool, paged: bool):
     """The same stream at reduced depth on the card (kernels) and on
-    the CPU (plain twins): equal states."""
+    the CPU (plain twins): equal states and, paged, equal planner
+    snapshots. A rehearsal runs both sides on the CPU."""
     from zipkin_tpu_torch.store.convert import state_to_numpy
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
     from zipkin_tpu_torch.tracegen import ColumnarTraceGen
 
-    cfg = full_config(dev, scale.small_log2, scale.services)
-    states = []
-    for device in ("cuda", "cpu"):
-        if device == "cuda" and not torch.cuda.is_available():
-            device = "cpu"
+    what = "paged parity" if paged else "parity"
+    cfg = full_config(dev, scale.small_log2, scale.services,
+                      **(paged_layout(scale) if paged else {}))
+    states, snaps = [], []
+    for device in ("cpu", "cpu") if rehearse else ("cuda", "cpu"):
         store = TorchSpanStore(cfg, device=device)
         gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
                                n_span_names=scale.names, topology=True,
@@ -486,26 +765,16 @@ def parity_phase(torch, dev, scale):
             store.write_batch(batch, ix)
         store.get_dependencies()
         states.append(state_to_numpy(store.state))
-    a, b = states
-    float_leaves = ("dep_window", "dep_moments", "dep_banks")
-    for k, ref in a.items():
-        got = b[k]
-        if k == "counters":
-            if {c: int(v) for c, v in ref.items()} != {
-                    c: int(v) for c, v in got.items()}:
-                fail("parity: counters differ")
-        elif k in float_leaves:
-            ref64, got64 = ref.astype(np.float64), got.astype(np.float64)
-            scale_ = np.abs(ref64).reshape(-1, ref64.shape[-1]).max(0)
-            if not (np.array_equal(ref64[..., 0], got64[..., 0])
-                    and np.all(np.abs(ref64 - got64)
-                               <= 1e-5 * (np.abs(ref64) + scale_))):
-                fail(f"parity: {k} differs beyond float32 tolerance")
-        elif not np.array_equal(ref, got):
-            fail(f"parity: {k} differs in {int((ref != got).sum())} cells")
-    wp = int(a["write_pos"])
-    log(f"parity: cuda and cpu states equal after {wp} spans "
-        f"(capacity {cfg.capacity}, {wp // cfg.capacity} ring laps)")
+        if paged:
+            snaps.append(store._planner.snapshot())
+    _check_states_equal(*states, what)
+    if paged and snaps[0] != snaps[1]:
+        fail(f"{what}: planner snapshots differ")
+    wp = int(states[0]["write_pos"])
+    extra = (f", {snaps[0]['reclaims_total']} page reclaims, planner "
+             f"snapshots equal" if paged else "")
+    log(f"{what}: cuda and cpu states equal after {wp} spans "
+        f"(capacity {cfg.capacity}, {wp // cfg.capacity} laps{extra})")
     return wp
 
 
@@ -546,19 +815,40 @@ def main() -> int:
             for line in out.splitlines():
                 if "registers" in line or "error" in line.lower():
                     log(f"  nvcc {name}: {line.strip()}")
-    rec, result = main_path(torch, K, dev, scale, device)
-    hist_rows = hist_phase(torch, K, rec)
-    arena = arena_phase(torch, K, rec)
+    phase_s = {}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    rec, result = phase("ring_path", main_path, torch, K, dev, scale,
+                        device)
+    hist_rows = phase("flat_histogram", hist_phase, torch, K, rec)
+    arena = phase("arena_claim_scatter", arena_phase, torch, K, rec)
     del rec
-    parity_phase(torch, dev, scale)
+    prec, presult = phase("paged_path", paged_path, torch, K, dev, scale,
+                          device)
+    gather = phase("paged_page_gather", gather_phase, torch, K, prec)
+    del prec
+    phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
+    phase("paged_parity", parity_phase, torch, dev, scale, args.rehearse,
+          True)
     big = max(hist_rows, key=lambda r: r["cells"])
+    by_path = {"ring": result["kernel_launches"],
+               "paged": presult["kernel_launches"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:105",
          "launches": result["kernel_launches"]["flat_histogram"],
+         "launches_by_path": {p: v["flat_histogram"]
+                              for p, v in by_path.items()},
          "max_abs_err": max(r["max_abs_err"] for r in hist_rows),
-         "ms": big["ms"], "kernel_ms": big["ms"],
+         "ms": big["ms"],
+         "device_ms": big["device_ms"],
          "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
          "bound_by": "bytes", "library_ms": big["library_ms"],
          "shape": {"cells": big["cells"], "rows": big["rows"]}},
@@ -566,13 +856,31 @@ def main() -> int:
          "source": "zipkin_tpu_torch/csrc/arena_claim_scatter.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:247",
          "launches": result["kernel_launches"]["arena_claim_scatter"],
+         "launches_by_path": {p: v["arena_claim_scatter"]
+                              for p, v in by_path.items()},
          "max_abs_err": arena["max_abs_err"], "ms": arena["ms"],
-         "kernel_ms": arena["ms"], "plain_ms": arena["plain_ms"],
+         "device_ms": arena["device_ms"],
+         "plain_ms": arena["plain_ms"],
          "bound_ms": arena["bound_ms"], "bound_by": "bytes",
          "library_ms": arena["library_ms"],
          "shape": {"arena_rows": arena["arena_rows"],
                    "rows": arena["rows"]}},
+        {"name": "paged_page_gather", "route": "cuda",
+         "source": "zipkin_tpu_torch/csrc/paged_page_gather.cu",
+         "replaces": "zipkin_tpu/ops/pallas_kernels.py:357",
+         "launches": presult["kernel_launches"]["paged_page_gather"],
+         "launches_by_path": {p: v["paged_page_gather"]
+                              for p, v in by_path.items()},
+         "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
+         "device_ms": gather["device_ms"],
+         "plain_ms": gather["plain_ms"],
+         "bound_ms": gather["bound_ms"], "bound_by": "bytes",
+         "library_ms": gather["library_ms"],
+         "shape": {"pages": gather["pages"],
+                   "page_rows": gather["page_rows"],
+                   "columns": gather["columns"]}},
     ]
+    log("phases: " + json.dumps(phase_s))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     if args.rehearse:

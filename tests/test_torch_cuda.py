@@ -99,3 +99,51 @@ def test_cuda_arena_long_tiles_and_overflow(cuda, monkeypatch):
                                   for a in args))
     torch.cuda.synchronize()
     np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
+
+
+def _gather_case(seed, page_rows, k, n_pages=64):
+    """14 span-like columns (eleven int64, three int32) of n_pages pages
+    and a page list of k entries with holes at the front, the middle
+    and the end (k >= 3), one past the last page when k >= 16."""
+    rng = np.random.default_rng(seed)
+    cap = n_pages * page_rows
+    cols = [torch.from_numpy(
+        rng.integers(-2**31, 2**31, cap).astype(np.int32) if i in (3, 4, 12)
+        else rng.integers(-2**62, 2**62, cap)) for i in range(14)]
+    pages = rng.integers(0, n_pages, k).astype(np.int32)
+    if k >= 3:
+        pages[[0, k // 2, k - 1]] = -1
+    if k >= 16:
+        pages[k // 3] = n_pages
+    return cols, torch.from_numpy(pages)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_rows", [64, 128, 256])
+@pytest.mark.parametrize("k", [1, 16, 256])
+def test_cuda_page_gather_matches_twin(cuda, page_rows, k):
+    cols, pages = _gather_case(page_rows + k, page_rows, k)
+    want = K.paged_page_gather(cols, pages, page_rows)
+    before = K.LAUNCHES["paged_page_gather"]
+    got = K.paged_page_gather([c.to(cuda) for c in cols], pages.to(cuda),
+                              page_rows)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_page_gather"] == before + 1
+    assert got.dtype == torch.int64 and got.shape == (14, k * page_rows)
+    np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_page_gather_checks_inputs(cuda):
+    cols, pages = _gather_case(0, 128, 8)
+    cols = [c.to(cuda) for c in cols]
+    with pytest.raises(TypeError):
+        K.paged_page_gather(cols, pages.to(cuda).long(), 128)
+    with pytest.raises(ValueError):
+        K.paged_page_gather(cols, pages.to(cuda), 96)
+    with pytest.raises(ValueError):
+        K.paged_page_gather(cols[:-1] + [cols[-1][:-8]], pages.to(cuda),
+                            128)
+    with pytest.raises(TypeError):
+        K.paged_page_gather(cols[:-1] + [cols[-1].float()], pages.to(cuda),
+                            128)

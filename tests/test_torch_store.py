@@ -188,8 +188,8 @@ def test_state_roundtrip_and_plane_order():
 
 
 def test_unported_layouts_raise():
-    with pytest.raises(NotImplementedError):
-        tdev.StoreConfig(layout="paged")
+    paged = tdev.StoreConfig(layout="paged", page_rows=128)
+    assert paged.paged_enabled and paged.n_pages == paged.capacity // 128
     with pytest.raises(NotImplementedError):
         tdev.StoreConfig(window_seconds=60)
 
@@ -258,6 +258,12 @@ def test_store_reads_match_reference():
         port.apply(spans[i:i + 150])
     assert port.counter_block() == ref.counter_block()
     assert port.counter_block()["ring_laps"] >= 2
+    assert_reads_match(ref, port, traces)
+
+
+def assert_reads_match(ref, port, traces):
+    """Every read API of the port store (behind _RefSpanAdapter) equal to
+    the reference store's, after both took the same spans."""
     services = sorted(ref.get_all_service_names())
     assert services and port.get_all_service_names() == set(services)
     end = 2**62

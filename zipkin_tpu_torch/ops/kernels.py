@@ -1,9 +1,15 @@
-"""The store's two hand-written CUDA kernels, with their plain twins.
+"""The store's three hand-written CUDA kernels, with their plain twins.
 
 - ``histogram_update`` -> ``csrc/flat_histogram.cu``: replaces the TPU
   kernel ``zipkin_tpu/ops/pallas_kernels.py:flat_histogram``.
 - ``arena_claim_scatter`` -> ``csrc/arena_claim_scatter.cu``: replaces
   ``zipkin_tpu/ops/pallas_kernels.py:arena_claim_scatter``.
+- ``paged_page_gather`` -> ``csrc/paged_page_gather.cu``: replaces
+  ``zipkin_tpu/ops/pallas_kernels.py:paged_page_gather``. It reads the
+  span columns in place, so the [2 x 14, capacity] int32 plane matrix
+  the TPU kernel gathers from is never built; none of the TPU kernel's
+  gates (``page_rows % 128``, the VMEM ceiling) apply: the store takes
+  it whenever ``use_pallas`` is set, for any power-of-two page size.
 
 Each wrapper takes its plain PyTorch twin ONLY for tensors on the CPU
 (the tests run there). For CUDA tensors it launches its kernel or
@@ -14,7 +20,7 @@ through the kernels.
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 plain-C shared libraries under ``build/zipkin_tpu_torch/`` next to the
 package (``build/`` is listed in ``.gitignore``) and loaded with
-``ctypes``; ``build_all()`` compiles both at once, one ``nvcc`` per
+``ctypes``; ``build_all()`` compiles all three at once, one ``nvcc`` per
 source, started together.
 """
 
@@ -32,7 +38,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "zipkin_tpu_torch"
-SOURCES = ("flat_histogram", "arena_claim_scatter")
+SOURCES = ("flat_histogram", "arena_claim_scatter", "paged_page_gather")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 BUILD_LOG: Dict[str, str] = {}
@@ -45,6 +51,11 @@ _ARGTYPES = {
     "zt_arena_claim_scatter": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        _P,
+    ],
+    "zt_paged_page_gather": [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         _P,
     ],
 }
@@ -278,3 +289,68 @@ def arena_claim_scatter(entries: torch.Tensor, bucket: torch.Tensor,
     _raise_on(rc, "arena_claim_scatter")
     LAUNCHES["arena_claim_scatter"] += 1
     return entries
+
+
+# ---------------------------------------------------------------------------
+# K3: paged trace-assembly block gather
+# ---------------------------------------------------------------------------
+
+PAGE_GATHER_MAX_COLS = 16
+
+
+def paged_page_gather_plain(cols, pages: torch.Tensor,
+                            page_rows: int) -> torch.Tensor:
+    """Plain twin: ``[C, K * page_rows]`` int64, block ``i`` the rows of
+    page ``pages[i]`` of every column (int32 columns sign-extended), all
+    zeros where the page is a hole (outside ``[0, n_pages)``)."""
+    n_pages = cols[0].shape[0] // page_rows
+    p = pages.to(torch.int64)
+    hole = (p < 0) | (p >= n_pages)
+    offs = torch.arange(page_rows, dtype=torch.int64, device=p.device)
+    slot = (torch.clamp(p, 0, n_pages - 1)[:, None] * page_rows
+            + offs[None, :]).reshape(-1)
+    out = torch.stack([col[slot].to(torch.int64) for col in cols])
+    keep = (~hole).repeat_interleave(page_rows)
+    return torch.where(keep[None], out, torch.zeros_like(out))
+
+
+def paged_page_gather(cols, pages: torch.Tensor,
+                      page_rows: int) -> torch.Tensor:
+    """Gather ``K = len(pages)`` pages of ``page_rows`` rows out of the
+    span columns ``cols`` (each 1-D, contiguous, int64 or int32, one
+    length ``capacity``) into a new ``[len(cols), K * page_rows]`` int64
+    matrix: exactly what the TPU kernel's plane output gives once its
+    lo/hi planes are recombined to int64. Pages < 0 (or past the last
+    page) are holes and give zero blocks."""
+    if not cols:
+        raise ValueError("paged_page_gather: no columns")
+    dev = cols[0].device
+    if dev.type == "cpu":
+        return paged_page_gather_plain(cols, pages, page_rows)
+    cap = cols[0].shape[0]
+    if len(cols) > PAGE_GATHER_MAX_COLS:
+        raise ValueError(f"paged_page_gather: at most "
+                         f"{PAGE_GATHER_MAX_COLS} columns")
+    if page_rows < 8 or page_rows & (page_rows - 1):
+        raise ValueError("page_rows must be a power of two >= 8")
+    if cap % page_rows:
+        raise ValueError("column length must be a multiple of page_rows")
+    for i, col in enumerate(cols):
+        if col.dtype not in (torch.int64, torch.int32):
+            raise TypeError(f"cols[{i}]: expected int64 or int32, got "
+                            f"{col.dtype}")
+        _check(col, f"cols[{i}]", col.dtype, dev, (cap,))
+    k = pages.shape[0]
+    _check(pages, "pages", torch.int32, dev, (k,))
+    out = torch.empty((len(cols), k * page_rows), dtype=torch.int64,
+                      device=dev)
+    if k == 0:
+        return out
+    ptrs = (ctypes.c_void_p * len(cols))(*(c.data_ptr() for c in cols))
+    sizes = (ctypes.c_int * len(cols))(*(c.element_size() for c in cols))
+    rc = _lib("paged_page_gather").zt_paged_page_gather(
+        ptrs, sizes, len(cols), pages.data_ptr(), out.data_ptr(), k,
+        page_rows, cap // page_rows, _stream())
+    _raise_on(rc, "paged_page_gather")
+    LAUNCHES["paged_page_gather"] += 1
+    return out

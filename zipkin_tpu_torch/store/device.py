@@ -16,10 +16,12 @@ the port updates the state IN PLACE and returns the same object.
 
 With ``StoreConfig.use_pallas`` the step routes its seven scatter-adds
 through the flat-histogram kernel and the arena entry write through the
-claim-scatter kernel (``ops/kernels.py``); on CPU tensors those wrappers
-run their plain twins. Only ``layout="ring"`` without the windowed
-arena is ported so far: ``StoreConfig`` raises ``NotImplementedError``
-for ``layout="paged"`` and for ``window_seconds > 0``.
+claim-scatter kernel, and the paged trace read gathers its pages through
+the page-gather kernel (``ops/kernels.py``); on CPU tensors those
+wrappers run their plain twins. Both span layouts are ported:
+``layout="ring"`` and ``layout="paged"`` (slots and gids planned by the
+host ``store/paged.PagePlanner``). The windowed arena is not:
+``StoreConfig`` raises ``NotImplementedError`` for ``window_seconds > 0``.
 """
 
 from __future__ import annotations
@@ -90,15 +92,23 @@ class StoreConfig(_StoreConfigFields):
 
     def __new__(cls, *args, **kw):
         self = super().__new__(cls, *args, **kw)
-        if self.layout != "ring":
-            raise NotImplementedError(
-                f"layout={self.layout!r}: only the ring layout is ported")
+        if self.layout not in ("ring", "paged"):
+            raise ValueError(f"unknown layout {self.layout!r} "
+                             "(expected 'ring' or 'paged')")
         if self.window_seconds > 0:
             raise NotImplementedError(
                 "window_seconds > 0: the windowed arena is not ported")
         if self.rank_path not in ("auto", "argsort", "counting"):
             raise ValueError(f"unknown rank_path {self.rank_path!r}")
         return self
+
+    @property
+    def paged_enabled(self) -> bool:
+        return self.layout == "paged"
+
+    @property
+    def n_pages(self) -> int:
+        return self.capacity // max(1, self.page_rows)
 
     @property
     def tab_slots(self) -> int:
@@ -500,11 +510,16 @@ def _pad(a: np.ndarray, n: int, fill=0, dtype=None) -> np.ndarray:
 
 def make_device_batch(batch: SpanBatch, name_lc_id: np.ndarray,
                       indexable: np.ndarray, pad_spans: int, pad_anns: int,
-                      pad_banns: int, error_flag: np.ndarray = None
-                      ) -> DeviceBatch:
+                      pad_banns: int, error_flag: np.ndarray = None,
+                      span_slot: np.ndarray = None,
+                      span_gid: np.ndarray = None,
+                      reclaim_pages: np.ndarray = None,
+                      pad_reclaims: int = 1) -> DeviceBatch:
     """Host: pad a SpanBatch (+ index columns) to static shapes (numpy;
-    the same arrays the reference's make_device_batch builds for a ring
-    store)."""
+    the same arrays the reference's make_device_batch builds). Paged
+    stores pass the planner's ``span_slot``/``span_gid`` per span and
+    the chunk's ``reclaim_pages`` (padded to ``pad_reclaims`` with -1);
+    ring batches keep shape-(1,) placeholders."""
     from zipkin_tpu_torch.columnar.schema import FLAG_HAS_PARENT
 
     if batch.n_spans > pad_spans or batch.n_annotations > pad_anns:
@@ -547,9 +562,13 @@ def make_device_batch(batch: SpanBatch, name_lc_id: np.ndarray,
         error_flag=_pad(
             np.zeros(batch.n_spans, bool) if error_flag is None
             else np.asarray(error_flag, bool), pad_spans, False),
-        span_slot=np.zeros(1, np.int32),
-        span_gid=np.zeros(1, np.int64),
-        reclaim_page=np.full(1, -1, np.int32),
+        span_slot=(np.zeros(1, np.int32) if span_slot is None
+                   else _pad(np.asarray(span_slot, np.int32), pad_spans)),
+        span_gid=(np.zeros(1, np.int64) if span_gid is None
+                  else _pad(np.asarray(span_gid, np.int64), pad_spans, -1)),
+        reclaim_page=(np.full(1, -1, np.int32) if reclaim_pages is None
+                      else _pad(np.asarray(reclaim_pages, np.int32),
+                                pad_reclaims, -1)),
     )
 
 
@@ -997,7 +1016,9 @@ def ingest_step(state: StoreState, b: DeviceBatch) -> StoreState:
     batch_to_device) into ``state`` IN PLACE — the reference's donating
     ``ingest_step``. The host chunkers guarantee the per-batch ring
     bounds (n_spans <= capacity, n_anns <= ann_capacity, ...), so ring
-    slots are unique among valid rows."""
+    slots are unique among valid rows. On a paged store the batch
+    carries the planner's slots and epoch-encoded gids (unique among
+    valid rows, ``slot == gid % capacity``) and the pages it reclaims."""
     c = state.config
     lv = state.leaves
     dev = state.device
@@ -1014,17 +1035,33 @@ def ingest_step(state: StoreState, b: DeviceBatch) -> StoreState:
     bwp = lv["bann_write_pos"]
     upd = {}
 
-    # -- ring writes -----------------------------------------------------
-    gids = wp + _arange(P, dev)
-    slots = gids % c.capacity
+    # -- span ring/page writes -------------------------------------------
+    if c.paged_enabled:
+        # Invalidate every row of the reclaimed pages BEFORE the batch
+        # writes land (in place, the order the reference's functional
+        # chain fixes): a stale row_gid would keep spliced-out spans
+        # visible to the ring scans. Padded reclaims (-1) give negative
+        # slots that _uset drops by masking before it indexes.
+        R = c.page_rows
+        rp = b.reclaim_page.to(torch.int64)
+        r_slots = (rp[:, None] * R + _arange(R, dev)[None, :]).reshape(-1)
+        r_ok = (rp >= 0).repeat_interleave(R)
+        _uset(lv["row_gid"], r_slots, torch.full_like(r_slots, -1), r_ok)
+        gids = b.span_gid
+        slots = b.span_slot.to(torch.int64)
+    else:
+        gids = wp + _arange(P, dev)
+        slots = gids % c.capacity
     for col in _SPAN_RING_COLS:
         _uset(lv[col], slots, getattr(b, col), mask)
     _uset(lv["row_gid"], slots, gids, mask)
     upd["write_pos"] = wp + n_spans
 
+    # Annotation rings stay FIFO under both layouts; a row carries its
+    # span's gid (ring: write_pos + index, paged: the planner's gid).
     a_gids = awp + _arange(PA, dev)
     a_slots = a_gids % c.ann_capacity
-    span_gid_of_ann = wp + b.ann_span_idx.to(torch.int64)
+    span_gid_of_ann = gids[b.ann_span_idx.to(torch.int64)]
     _uset(lv["ann_gid"], a_slots, span_gid_of_ann, mask_a)
     for col in ("ann_ts", "ann_value_id", "ann_service_id",
                 "ann_endpoint_id"):
@@ -1033,7 +1070,7 @@ def ingest_step(state: StoreState, b: DeviceBatch) -> StoreState:
 
     bb_gids = bwp + _arange(PB, dev)
     bb_slots = bb_gids % c.bann_capacity
-    span_gid_of_bann = wp + b.bann_span_idx.to(torch.int64)
+    span_gid_of_bann = gids[b.bann_span_idx.to(torch.int64)]
     _uset(lv["bann_gid"], bb_slots, span_gid_of_bann, mask_b)
     for col in ("bann_key_id", "bann_value_id", "bann_type",
                 "bann_service_id", "bann_endpoint_id"):
@@ -1635,22 +1672,22 @@ def _oldest_k(mask, wp, cap: int, k: int):
     return _topk_desc(key, k)[1]
 
 
-def gather_trace_rows(state: StoreState, sorted_qids, k_spans: int,
-                      k_anns: int, k_banns: int):
-    """Full-ring gather of every row of ``sorted_qids``, compacted in
-    insertion order: (counts [3], span_mat, ann_mat, bann_mat)."""
-    c = state.config
-    q = _as_i64(sorted_qids, state.device)
+def _span_in(state: StoreState, q):
+    """Per span slot: live and carrying one of the sorted ids ``q``."""
     nq = q.shape[0]
-    live = state.row_gid >= 0
     pos = torch.clamp(torch.searchsorted(q, state.trace_id), 0, nq - 1)
-    span_in = live & (q[pos] == state.trace_id)
+    return (state.row_gid >= 0) & (q[pos] == state.trace_id)
+
+
+def _side_rows(state: StoreState, span_in, k_anns: int, k_banns: int):
+    """The annotation and binary rows of the ``span_in`` spans, oldest
+    first by ring age (their insertion order under both layouts):
+    (ann count, ann_mat, bann count, bann_mat)."""
+    c = state.config
     a_slot, a_live = _span_slot(state.ann_gid, state.row_gid, c.capacity)
     ann_in = a_live & span_in[a_slot]
     b_slot, b_live = _span_slot(state.bann_gid, state.row_gid, c.capacity)
     bann_in = b_live & span_in[b_slot]
-    sel = _oldest_k(span_in, state.write_pos, c.capacity, k_spans)
-    span_mat = _mat(state, SPAN_MAT_COLS, sel)
     a_sel = _oldest_k(ann_in, state.ann_write_pos, c.ann_capacity, k_anns)
     ann_mat = _mat(state, ANN_MAT_COLS, a_sel)
     ann_mat = torch.where(ann_in[a_sel][None], ann_mat,
@@ -1660,7 +1697,69 @@ def gather_trace_rows(state: StoreState, sorted_qids, k_spans: int,
     bann_mat = _mat(state, BANN_MAT_COLS, b_sel)
     bann_mat = torch.where(bann_in[b_sel][None], bann_mat,
                            torch.full_like(bann_mat, -1))
-    counts = torch.stack([span_in.sum(), ann_in.sum(), bann_in.sum()])
+    return ann_in.sum(), ann_mat, bann_in.sum(), bann_mat
+
+
+def gather_trace_rows(state: StoreState, sorted_qids, k_spans: int,
+                      k_anns: int, k_banns: int):
+    """Full-ring gather of every row of ``sorted_qids``, compacted in
+    insertion order: (counts [3], span_mat, ann_mat, bann_mat). On a
+    paged store span rows order by gid (slot position is a page
+    assignment, not an arrival rank); the columns past the match count
+    are then left unmasked, as in the reference."""
+    c = state.config
+    q = _as_i64(sorted_qids, state.device)
+    span_in = _span_in(state, q)
+    if c.paged_enabled:
+        skey = torch.where(span_in, I64_MAX - state.row_gid,
+                           torch.full_like(state.row_gid, -1))
+        sel = _topk_desc(skey, k_spans)[1]
+    else:
+        sel = _oldest_k(span_in, state.write_pos, c.capacity, k_spans)
+    span_mat = _mat(state, SPAN_MAT_COLS, sel)
+    n_a, ann_mat, n_b, bann_mat = _side_rows(state, span_in, k_anns,
+                                             k_banns)
+    counts = torch.stack([span_in.sum(), n_a, n_b])
+    return counts, span_mat, ann_mat, bann_mat
+
+
+def gather_paged_trace_rows(state: StoreState, sorted_qids, pages, epochs,
+                            k_spans: int, k_anns: int, k_banns: int):
+    """Paged twin of gather_trace_rows: span rows come from the page
+    list ``pages`` [K] (-1 holes) with their ``epochs`` [K], annotation
+    rows from the ring scan; same four-array contract. The expected gid
+    of slot (page p, offset j) is ``epoch * capacity + p * R + j``; a
+    gathered row counts only when its row_gid equals it and its trace
+    id is queried (small traces share pages). Dead rows are masked to
+    -1, so which page gather ran (the kernel with ``use_pallas``, its
+    plain twin otherwise) never shows through."""
+    c = state.config
+    dev = state.device
+    q = _as_i64(sorted_qids, dev)
+    pages = torch.as_tensor(np.asarray(pages, np.int32)).to(dev)
+    epochs = torch.as_tensor(np.asarray(epochs, np.int64)).to(dev)
+    R = c.page_rows
+    cap = c.capacity
+    pg = torch.clamp(pages.to(torch.int64), 0, c.n_pages - 1)
+    page_slots = pg[:, None] * R + _arange(R, dev)[None, :]
+    expected = torch.where(pages[:, None] >= 0,
+                           epochs[:, None] * cap + page_slots,
+                           torch.full_like(page_slots, -1)).reshape(-1)
+    gather = K.paged_page_gather if c.use_pallas else \
+        K.paged_page_gather_plain
+    rows = gather([getattr(state, col) for col in SPAN_MAT_COLS], pages, R)
+    g_tid = rows[0]
+    nq = q.shape[0]
+    g_pos = torch.clamp(torch.searchsorted(q, g_tid), 0, nq - 1)
+    ok = (expected >= 0) & (rows[-1] == expected) & (q[g_pos] == g_tid)
+    skey = torch.where(ok, I64_MAX - expected, torch.full_like(expected, -1))
+    _, sel = _topk_desc(skey, min(k_spans, skey.shape[0]))
+    span_mat = torch.where(ok[sel][None], rows[:, sel],
+                           torch.full_like(rows[:, sel], -1))
+    span_mat = _pad_cols(span_mat, k_spans)
+    n_a, ann_mat, n_b, bann_mat = _side_rows(state, _span_in(state, q),
+                                             k_anns, k_banns)
+    counts = torch.stack([ok.sum(), n_a, n_b])
     return counts, span_mat, ann_mat, bann_mat
 
 

@@ -7,11 +7,17 @@ one fused ``ingest_step`` per chunk (a loop of them per chained unit)
 updates the device state in place; reads run the index kernels with
 the ring scans as exact fallbacks and fetch only the winners.
 
+Both span layouts: ``layout="ring"`` and ``layout="paged"``, where the
+host ``PagePlanner`` assigns every span its slot and epoch-encoded gid
+in ``_pad_unit``, whole-trace reads go through the page table
+(``dev.gather_paged_trace_rows``), and the index reads stay off
+because their trust gates are FIFO-gid arithmetic.
+
 The hooks ``_plan_units`` / ``_pad_unit`` / ``_commit_unit`` keep the
 reference's names and contracts. Not ported yet (later slices): the
 ingest pipeline, WAL, eviction capture and cold tier, the sketch mirror
-and query engine, checkpoints, the paged layout, windowed analytics,
-the native thrift fast path, sharding and the daemon.
+and query engine, checkpoints, windowed analytics, the native thrift
+fast path, sharding and the daemon.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from zipkin_tpu_torch.store.base import (
     should_index,
     topk_ids_with_escalation,
 )
+from zipkin_tpu_torch.store.paged import PagePlanner
 
 _BATCH_MIN = 64
 
@@ -295,6 +302,11 @@ class TorchSpanStore(SpanStore):
         self.device = dev.resolve_device(device)
         self.codec = codec or SpanCodec()
         self.state = dev.init_state(self.config, self.device)
+        # Paged layout: the host page allocator plans every unit's slots
+        # and gids (``slot == gid % capacity`` still holds, so the ring
+        # scans stay layout-blind).
+        self._planner = (PagePlanner(self.config)
+                         if self.config.paged_enabled else None)
         # Writers serialize on _lock; _state_lock guards the in-place
         # state against a concurrent reader (both re-entrant).
         self._lock = threading.RLock()
@@ -317,6 +329,14 @@ class TorchSpanStore(SpanStore):
     @property
     def dicts(self) -> DictionarySet:
         return self.codec.dicts
+
+    @property
+    def _index_reads(self) -> bool:
+        """Whether reads may take the index fast paths. Off on a paged
+        store: their trust gates (wm < write_pos - capacity) are FIFO-gid
+        arithmetic, unsound against epoch-encoded gids, so id lookups
+        take the exact ring scans (the index writes still run)."""
+        return self.config.use_index and self._planner is None
 
     # -- writes ---------------------------------------------------------
 
@@ -363,10 +383,18 @@ class TorchSpanStore(SpanStore):
         if batch:
             yield batch
 
+    def _span_budget(self) -> int:
+        """One launch unit's span bound: capacity//2, the bucket-close
+        cadence; capacity//8 on a paged store, which keeps a unit's page
+        demand under half the pool, so the allocator always finds a
+        victim page the unit has not touched."""
+        c = self.config
+        return max(1, c.capacity // (8 if c.paged_enabled else 2))
+
     def _max_chunk_spans(self) -> int:
         c = self.config
         limit = c.batch_spans if c.batch_spans > 0 else self.MAX_CHUNK
-        return max(1, min(limit, c.capacity // 2 or 1, c.pending_slots))
+        return max(1, min(limit, self._span_budget(), c.pending_slots))
 
     def _chunk_columnar(self, batch: SpanBatch, name_lc: np.ndarray,
                         indexable: np.ndarray):
@@ -451,10 +479,10 @@ class TorchSpanStore(SpanStore):
 
     def _plan_units(self, parts):
         """CHAIN_SIZES greedy grouping of chunker parts into launch
-        units; spans bounded by capacity//2 (the bucket-close cadence),
-        side rows by their ring capacities."""
+        units; spans bounded by _span_budget, side rows by their ring
+        capacities."""
         c = self.config
-        span_budget = max(1, c.capacity // 2)
+        span_budget = self._span_budget()
         i = 0
         n = len(parts)
         while i < n:
@@ -477,14 +505,33 @@ class TorchSpanStore(SpanStore):
 
     def _pad_unit(self, group) -> IngestUnit:
         """Pad one planned group to its pow2 buckets (host numpy);
-        chained groups pad every chunk to the group max and stack."""
+        chained groups pad every chunk to the group max and stack. On a
+        paged store the planner plans the unit's slot and gid claims
+        here, in feed order; every chunk's reclaim list pads to one pow2
+        length across the unit."""
+        chunks = [None] * len(group)
+        pad_rc = 1
+        if self._planner is not None:
+            plan = self._planner.plan_unit(
+                [np.asarray(b.trace_id) for b, _, _ in group])
+            chunks = plan.chunks
+            pad_rc = _next_pow2(max(
+                [1] + [len(cp.reclaim_pages) for cp in chunks]))
+
+        def paged_cols(cp):
+            if cp is None:
+                return {}
+            return dict(span_slot=cp.span_slot, span_gid=cp.span_gid,
+                        reclaim_pages=cp.reclaim_pages,
+                        pad_reclaims=pad_rc)
+
         if len(group) == 1:
             b, lc, ix = group[0]
             db = dev.make_device_batch(
                 b, name_lc_id=lc, indexable=ix,
                 pad_spans=_next_pow2(b.n_spans),
                 pad_anns=_next_pow2(b.n_annotations),
-                pad_banns=_next_pow2(b.n_binary))
+                pad_banns=_next_pow2(b.n_binary), **paged_cols(chunks[0]))
             return IngestUnit(db, b.n_spans, b.n_annotations, b.n_binary,
                               1, False)
         pad_s = _next_pow2(max(b.n_spans for b, _, _ in group))
@@ -492,8 +539,8 @@ class TorchSpanStore(SpanStore):
         pad_b = _next_pow2(max(b.n_binary for b, _, _ in group))
         dbs = [dev.make_device_batch(b, name_lc_id=lc, indexable=ix,
                                      pad_spans=pad_s, pad_anns=pad_a,
-                                     pad_banns=pad_b)
-               for b, lc, ix in group]
+                                     pad_banns=pad_b, **paged_cols(cp))
+               for (b, lc, ix), cp in zip(group, chunks)]
         return IngestUnit(
             dev.stack_device_batches(dbs),
             sum(b.n_spans for b, _, _ in group),
@@ -502,7 +549,10 @@ class TorchSpanStore(SpanStore):
 
     def _commit_unit(self, unit: IngestUnit) -> None:
         """The device commit: bucket-close trigger, the in-place step(s),
-        host mirror bumps and the sweep cadence."""
+        host mirror bumps and the sweep cadence. A paged unit's step
+        invalidates the pages it reclaims; the reference captures their
+        rows for the cold tier first, which the port does not have yet:
+        reclaimed rows are not captured until that slice lands."""
         self.ensure_writable()
         self._maybe_archive(unit.n_spans)
         if unit.chained:
@@ -616,7 +666,7 @@ class TorchSpanStore(SpanStore):
             name_lc = -1
         fetch = self._scan_fetcher(lambda k: dev.query_trace_ids_by_service(
             self.state, svc, name_lc, end_ts, k))
-        if self.config.use_index and not force_scan:
+        if self._index_reads and not force_scan:
             index_fetch = self._index_fetcher(
                 lambda k: dev.iquery_trace_ids_by_service(
                     self.state, svc, name_lc, end_ts, k))
@@ -647,7 +697,7 @@ class TorchSpanStore(SpanStore):
         c = self.config
         k_max = c.ann_capacity + c.bann_capacity
         mixed = ann_value >= 0 and bann_key >= 0
-        if c.use_index and not mixed and not force_scan:
+        if self._index_reads and not mixed and not force_scan:
             index_fetch = self._index_fetcher(
                 lambda k: dev.iquery_trace_ids_by_annotation(
                     self.state, *args, k))
@@ -659,7 +709,7 @@ class TorchSpanStore(SpanStore):
         unresolvable keys, mixed names and distrusted buckets drop to
         the singular paths."""
         c = self.config
-        if not c.use_index or not queries:
+        if not self._index_reads or not queries:
             return super().get_trace_ids_multi(queries)
         results, probes, limits, fallback = resolve_multi_probes(
             c, self.dicts, queries)
@@ -704,7 +754,7 @@ class TorchSpanStore(SpanStore):
     def _durations_mat(self, qids: np.ndarray,
                        force_scan: bool = False) -> np.ndarray:
         with self._state_lock:
-            if self.config.use_index and not force_scan:
+            if self._index_reads and not force_scan:
                 mat, exact = dev.iquery_durations(self.state, qids)
                 if bool(exact):
                     return _np(mat)
@@ -725,7 +775,9 @@ class TorchSpanStore(SpanStore):
         with self._state_lock:
             st = self.state
             payload = None
-            if self.config.use_index and not force_scan:
+            if self._planner is not None and not force_scan:
+                payload = self._gather_via_pages(st, qids)
+            elif self._index_reads and not force_scan:
                 def ifetch(k_s, k_a, k_b):
                     counts, s_m, a_m, b_m, exact = \
                         dev.iquery_gather_trace_rows(st, qids, k_s, k_a,
@@ -746,6 +798,32 @@ class TorchSpanStore(SpanStore):
 
                 payload = gather_with_escalation(self.config, fetch)
         return payload
+
+    def _gather_via_pages(self, st, qids: np.ndarray):
+        """Whole-trace gather over the queried traces' page chains: the
+        read touches K x page_rows candidate rows, not the whole arena.
+        Returns None when a chain overflowed page_max_chain; those reads
+        take the exact ring scan."""
+        chains = self._planner.chains_for(qids)
+        if chains is None:
+            return None
+        pages, epochs = chains
+        # Pad the page list to a pow2 count with holes (-1 pages give
+        # no rows), as the reference does for its compile cache.
+        k = _next_pow2(max(1, len(pages)))
+        pg = np.full(k, -1, np.int32)
+        ep = np.zeros(k, np.int64)
+        pg[:len(pages)] = pages
+        ep[:len(epochs)] = epochs
+
+        def fetch(k_s, k_a, k_b):
+            counts, s_m, a_m, b_m = dev.gather_paged_trace_rows(
+                st, qids, pg, ep, k_s, k_a, k_b)
+            n_s, n_a, n_b = (int(x) for x in _np(counts))
+            return n_s, n_a, n_b, (n_s, n_a, n_b, _np(s_m), _np(a_m),
+                                   _np(b_m))
+
+        return gather_with_escalation(self.config, fetch)
 
     def get_trace_rows(self, trace_ids: Sequence[int],
                        force_scan: bool = False) -> List[Tuple[int, Span]]:
@@ -920,6 +998,11 @@ class TorchSpanStore(SpanStore):
         out["index_hits"] = float(self.index_hits)
         out["index_scan_fallbacks"] = float(self.index_fallbacks)
         out["batch_spans_limit"] = float(self._max_chunk_spans())
+        if self._planner is not None:
+            pstats = self._planner.stats()
+            out["pages_active"] = float(pstats["pages_active"])
+            out["pages_free"] = float(pstats["pages_free"])
+            out["page_reclaims_total"] = float(pstats["page_reclaims"])
         return out
 
     def stored_span_count(self) -> float:
