@@ -10,19 +10,22 @@ nvcc per source, started together), then
 1. drives the ring store's main path at full width: a ``TorchSpanStore``
    at the 1k-service / 2^22-span-ring configuration with the kernels on
    streams >= 1.25 x 2^22 generated spans through ``write_batch`` (the
-   span ring wraps, index buckets displace entries), applies ~2000
-   known traces and queries them with known answers; the flat-histogram
-   and arena kernels' launch counters, zeroed just before the drive,
-   must have advanced;
+   span ring wraps, index buckets displace entries), profiles three
+   more launches (``--profile``: device time by kernel, idle share),
+   applies ~2000 known traces and queries them with known answers; the
+   launch counters of the flat histogram and of both arena halves
+   (claim, write), zeroed just before the drive, must have advanced;
 2. drives the paged layout the same way (128-row pages, 32,768 pages):
    >= 39 launches so the page pool runs out and pages are reclaimed,
    then the known traces plus 32 big traces (exclusive, multi-page
    chains) and one trace past ``page_max_chain`` (its read takes the
-   ring-scan fallback); all three kernels must have launched;
+   ring-scan fallback); all four kernel wrappers must have launched;
 3. holds each kernel against its plain PyTorch twin, bitwise, on inputs
-   the paths gave it (recorded during the drives), plus an in-batch
-   bucket overflow for the arena kernel and hole pages for the page
-   gather, and times kernel, twin and a one-call PyTorch yardstick;
+   the paths gave it (recorded during the drives): the arena claim,
+   write and the two together also on an in-batch bucket overflow, a
+   power-of-two bucket count, no valid row and one bucket spanning
+   several of the claim's blocks; the page gather also on hole pages.
+   It times call, kernel alone, twin and a one-call PyTorch yardstick;
 4. runs each layout's stream at capacity 2^14 (same widths) on the card
    and on the CPU (plain twins) and requires equal states (and, paged,
    equal planner snapshots).
@@ -38,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -141,68 +145,79 @@ def time_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_ms(torch, fn, kernel: str, reps: int = 10):
-    """Mean device milliseconds of the kernels named ``*kernel*`` in one
-    ``fn`` call (torch.profiler's CUDA activity): no host launch gaps,
-    and a 256 MB write between calls so each starts with the 50 MB L2
-    cold, as a read on the store finds it. "not measured" off the card."""
+def device_ms(torch, fn, kernel, reps: int = 10):
+    """Mean device milliseconds of the device activities whose name
+    holds ``kernel`` (a string, or a tuple of strings: any of them) in
+    one ``fn`` call (torch.profiler's CUDA activity): no host launch
+    gaps, and a 256 MB fill between calls so each starts with the 50 MB
+    L2 cold, as a read on the store finds it. The fill writes ones, so
+    it is a kernel and never a memset. "not measured" off the card."""
     if not torch.cuda.is_available():
         return "not measured"
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            flush.zero_()
+            flush.fill_(1)
             fn()
         torch.cuda.synchronize()
     busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == DeviceType.CUDA and kernel in e.name)
+               if e.device_type == DeviceType.CUDA
+               and any(n in e.name for n in names))
     return busy / reps / 1e3
 
 
 class Recorder:
-    """Wraps the kernels module's three wrappers to keep a copy of their
-    inputs on a path (the first step's seven flat-histogram call sites
-    and arena write; the page gather call with the most pages, by
-    reference to the state's columns); the kernel then runs as usual
-    and counts its launch."""
+    """Wraps the kernels module's wrappers to keep a copy of their inputs
+    on a path (the first step's seven flat-histogram call sites, arena
+    claim and arena write; the page gather call with the most pages, by
+    reference to the state's columns); the kernel then runs as usual and
+    counts its launch."""
+
+    NAMES = ("histogram_update", "arena_claim", "arena_write",
+             "paged_page_gather")
 
     def __init__(self, K, record=("hist", "arena")):
         self.K = K
-        self.hist, self.arena, self.gather = [], [], None
-        self._orig = (K.histogram_update, K.arena_claim_scatter,
-                      K.paged_page_gather)
+        self.hist, self.claim, self.write, self.gather = [], None, None, None
+        self._orig = {n: getattr(K, n) for n in self.NAMES}
+        orig = self._orig
 
         def hist(counts, idx, weights):
             if "hist" in record and len(self.hist) < 7:
                 self.hist.append((counts.clone(), idx.clone(),
                                   weights.clone()))
-            return self._orig[0](counts, idx, weights)
+            return orig["histogram_update"](counts, idx, weights)
 
-        def arena(entries, *args, n_buckets):
-            if "arena" in record and not self.arena:
-                self.arena.append((entries.clone(),
-                                   tuple(a.clone() for a in args),
-                                   n_buckets))
-            return self._orig[1](entries, *args, n_buckets=n_buckets)
+        def claim(bucket, valid, n_buckets):
+            if "arena" in record and self.claim is None:
+                self.claim = (bucket.clone(), valid.clone(), n_buckets)
+            return orig["arena_claim"](bucket, valid, n_buckets)
+
+        def write(entries, *args):
+            if "arena" in record and self.write is None:
+                self.write = (entries.clone(),
+                              tuple(a.clone() for a in args))
+            return orig["arena_write"](entries, *args)
 
         def gather(cols, pages, page_rows):
             if "gather" in record and (
                     self.gather is None
                     or pages.numel() > self.gather[1].numel()):
                 self.gather = (list(cols), pages.clone(), page_rows)
-            return self._orig[2](cols, pages, page_rows)
+            return orig["paged_page_gather"](cols, pages, page_rows)
 
-        K.histogram_update, K.arena_claim_scatter = hist, arena
-        K.paged_page_gather = gather
+        for n, fn in zip(self.NAMES, (hist, claim, write, gather)):
+            setattr(K, n, fn)
 
     def restore(self):
-        (self.K.histogram_update, self.K.arena_claim_scatter,
-         self.K.paged_page_gather) = self._orig
+        for n, fn in self._orig.items():
+            setattr(self.K, n, fn)
 
 
 def sync(torch, device) -> None:
@@ -288,18 +303,28 @@ def profile_steps(torch, store, gen, scale):
 
 def stream(torch, store, gen, scale, n_launches: int, device):
     """``n_launches`` generated batches through ``write_batch``, each
-    synchronised: (spans written, per-launch seconds, wall seconds)."""
+    synchronised: (spans written, per-launch seconds, wall seconds,
+    peaks). ``peaks`` splits peak device memory into the first launch
+    (CUDA warm-up, the recorder's copies) and the launches after it."""
     t0 = time.perf_counter()
     written = 0
     step_s = []
-    for _ in range(n_launches):
+    peaks = {}
+    for i in range(n_launches):
         batch, _, indexable = gen.next_batch(scale.batch_traces)
         ts = time.perf_counter()
         store.write_batch(batch, indexable)
         sync(torch, device)
         step_s.append(time.perf_counter() - ts)
         written += batch.n_spans
-    return written, step_s, time.perf_counter() - t0
+        if i == 0 and device.type == "cuda":
+            peaks["first_launch_peak_bytes"] = (
+                torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+    if device.type == "cuda":
+        peaks["stream_peak_bytes_after_first"] = (
+            torch.cuda.max_memory_allocated())
+    return written, step_s, time.perf_counter() - t0, peaks
 
 
 def known_traces(scale):
@@ -341,18 +366,46 @@ def big_traces(scale, names):
     return out[:-1], out[-1]
 
 
+class GcPauses:
+    """Host milliseconds spent in Python's cyclic garbage collector while
+    installed in ``gc.callbacks``."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self._t = 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t) * 1e3
+
+
 def known_answer_reads(store, traces, big, overflow, names, gen):
     """Round-trip every known trace (batches of 250; the overflowed
     trace alone), by-service and by-annotation lookups, the catalogs,
-    dependencies and the HLL estimate. Returns the per-query ms."""
+    dependencies and the HLL estimate. Returns (ms, query, ms of it in
+    the garbage collector) a query."""
+    pauses = GcPauses()
+    gc.callbacks.append(pauses)
+    try:
+        return _known_answer_reads(store, traces, big, overflow, names,
+                                   gen, pauses)
+    finally:
+        gc.callbacks.remove(pauses)
+
+
+def _known_answer_reads(store, traces, big, overflow, names, gen, pauses):
     lat = []
 
     def q(fn, *a):
+        g = pauses.ms
         t = time.perf_counter()
         out = fn(*a)
         n = len(a[0]) if a and isinstance(a[0], list) else None
         lat.append(((time.perf_counter() - t) * 1e3,
-                    fn.__name__ + (f"[{n} ids]" if n else "")))
+                    fn.__name__ + (f"[{n} ids]" if n else ""),
+                    pauses.ms - g))
         return out
 
     small = [s for t in traces for s in t]
@@ -433,6 +486,21 @@ def known_answer_reads(store, traces, big, overflow, names, gen):
     return lat
 
 
+def read_split(store, ids, reps: int = 3):
+    """Host-clock ms of a whole-trace read and of its gather alone (the
+    device work and the copy of its matrices to the host); the rest of
+    the read is the host's decode into spans."""
+    out = {"read_ms": [], "gather_ms": []}
+    for _ in range(reps):
+        t = time.perf_counter()
+        store.get_spans_by_trace_ids(ids)
+        out["read_ms"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        store._gather_trace_mats(ids)
+        out["gather_ms"].append((time.perf_counter() - t) * 1e3)
+    return out
+
+
 def check_launches(launches, names, device, path):
     for name in names:
         if launches[name] <= 0 and device.type == "cuda":
@@ -440,12 +508,13 @@ def check_launches(launches, names, device, path):
 
 
 def path_result(torch, store, scale, written, step_s, stream_s, lat,
-                launches, device):
+                launches, device, peaks):
     counters = store.counters()
-    mem = (torch.cuda.max_memory_allocated() if device.type == "cuda"
-           else 0)
+    mem = (max(peaks["first_launch_peak_bytes"],
+               torch.cuda.max_memory_allocated())
+           if device.type == "cuda" else 0)
     steady = step_s[1:] or step_s
-    ms = [t for t, _ in lat]
+    ms = [t for t, _, _ in lat]
     return {
         "spans_streamed": written, "launches": len(step_s),
         "batch_spans": scale.batch_traces * 7,
@@ -457,9 +526,11 @@ def path_result(torch, store, scale, written, step_s, stream_s, lat,
         "query_p99_ms": float(np.percentile(ms, 99)),
         "queries": len(lat),
         "slowest_queries_ms": sorted(lat, reverse=True)[:5],
+        "query_gc_ms": sum(g for _, _, g in lat),
         "index_hits": counters["index_hits"],
         "index_scan_fallbacks": counters["index_scan_fallbacks"],
         "max_memory_allocated_bytes": mem,
+        **peaks,
         "kernel_launches": launches,
     }
 
@@ -477,8 +548,8 @@ def main_path(torch, K, dev, scale, device):
     rec = Recorder(K)
     K.reset_launches()
     n_launches = -(-scale.stream_spans // (scale.batch_traces * 7))
-    written, step_s, stream_s = stream(torch, store, gen, scale,
-                                       n_launches, device)
+    written, step_s, stream_s, peaks = stream(torch, store, gen, scale,
+                                              n_launches, device)
     profile = None
     if scale.profile_steps:
         profile = profile_steps(torch, store, gen, scale)
@@ -492,13 +563,13 @@ def main_path(torch, K, dev, scale, device):
     log(f"ring path: {written} spans streamed in {len(step_s)} launches, "
         f"{stream_s:.3f} s; ring laps {cb['ring_laps']}; launches "
         f"{launches}")
-    check_launches(launches, ("flat_histogram", "arena_claim_scatter"),
-                   device, "ring")
+    check_launches(launches, ("flat_histogram", "arena_claim",
+                              "arena_write"), device, "ring")
     if cb["ring_laps"] < 1:
         fail("the span ring did not wrap")
     lat = known_answer_reads(store, traces, [], None, names, gen)
     result = path_result(torch, store, scale, written, step_s, stream_s,
-                         lat, launches, device)
+                         lat, launches, device, peaks)
     result["idle_share"] = (profile["idle_share"] if profile
                             else "not measured")
     log("ring path result: " + json.dumps(result))
@@ -533,8 +604,8 @@ def paged_path(torch, K, dev, scale, device):
                            n_span_names=scale.names, topology=True, seed=1)
     rec = Recorder(K, record=("gather",))
     K.reset_launches()
-    written, step_s, stream_s = stream(torch, store, gen, scale,
-                                       scale.paged_launches, device)
+    written, step_s, stream_s, peaks = stream(torch, store, gen, scale,
+                                              scale.paged_launches, device)
     stream_plan_s = list(plan_s)
     reclaims_stream = planner.stats()["page_reclaims"]
     traces, names = known_traces(scale)
@@ -547,15 +618,17 @@ def paged_path(torch, K, dev, scale, device):
     sync(torch, device)
     launches = dict(K.LAUNCHES)
     rec.restore()
+    split = {"overflow_trace": read_split(store, [overflow[0].trace_id]),
+             "big_traces": read_split(store, [t[0].trace_id for t in big])}
     counters = store.counters()
     log(f"paged path: {written} spans streamed in {len(step_s)} launches, "
         f"{stream_s:.3f} s; {counters['page_reclaims_total']:.0f} page "
         f"reclaims; launches {launches}")
-    check_launches(launches, tuple(K.SOURCES), device, "paged")
+    check_launches(launches, K.KERNELS, device, "paged")
     if counters["page_reclaims_total"] <= 0 or reclaims_stream <= 0:
         fail("the paged stream reclaimed no page")
     result = path_result(torch, store, scale, written, step_s, stream_s,
-                         lat, launches, device)
+                         lat, launches, device, peaks)
     steady_plan = stream_plan_s[1:] or stream_plan_s
     result.update({
         "pages": cfg.n_pages, "page_rows": cfg.page_rows,
@@ -571,6 +644,7 @@ def paged_path(torch, K, dev, scale, device):
         "big_trace_spans": [len(t) for t in big],
         "overflow_trace_spans": len(overflow),
         "gather_pages_max": int(rec.gather[1].numel()) if rec.gather else 0,
+        "read_split": split,
     })
     log("paged path result: " + json.dumps(result))
     del store
@@ -615,65 +689,139 @@ def hist_phase(torch, K, rec):
     return rows
 
 
-def arena_phase(torch, K, rec):
-    if not rec.arena:
-        fail("no arena_claim_scatter call was recorded")
-    entries, args, n_b = rec.arena[0]
-    bucket, base, slot0, depth, vals, valid = args
-    out = []
-    cases = [("main-path step", args)]
-    # The same rows with an in-batch overflow: 2*depth+1 rows of global
-    # bucket 0 (the service family's first bucket: slot0 0, its depth)
-    # ahead of the step's rows.
-    d0 = int(depth[0])
-    k = 2 * d0 + 1
-    ob, obase, oslot0, odepth = (bucket.clone(), base.clone(),
-                                 slot0.clone(), depth.clone())
-    ob[:k], oslot0[:k], odepth[:k] = 0, 0, d0
-    # One cursor per bucket: every row of bucket 0 carries the same base.
-    obase[ob == 0] = 12345
-    ovalid = valid.clone()
-    ovalid[:k] = True
-    cases.append(("in-batch overflow", (ob, obase, oslot0, odepth, vals,
-                                        ovalid)))
-    for label, a in cases:
-        want = K.arena_claim_scatter_plain(entries.clone(), *a, n_b)
-        got = K.arena_claim_scatter(entries.clone(), *a, n_buckets=n_b)
-        diff = (got != want)
-        err = int((got[diff.any(1)] - want[diff.any(1)]).abs().max()) \
-            if bool(diff.any()) else 0
-        if err != 0:
-            fail(f"arena_claim_scatter ({label}) disagrees: "
-                 f"{int(diff.any(1).sum())} rows")
-        out.append(label)
-    scratch = entries.clone()
-    ms = time_ms(torch, lambda: K.arena_claim_scatter(
-        scratch, *args, n_buckets=n_b), reps=5)
-    plain = time_ms(torch, lambda: K.arena_claim_scatter_plain(
-        scratch, *args, n_b), reps=5)
-    dev_ms = device_ms(torch, lambda: K.arena_claim_scatter(
-        scratch, *args, n_buckets=n_b), "arena_", reps=5)
-    rank = K.fifo_ranks(bucket, valid, n_b)
-    bl = bucket.long()
-    cnt = torch.zeros(n_b + 1, dtype=torch.int32, device=bucket.device)
-    cnt.index_add_(0, torch.where(valid, bl, torch.full_like(bl, n_b)),
-                   torch.ones_like(rank))
-    keep = valid & (rank >= cnt[bl] - depth)
-    slot = slot0 + ((base + rank) % depth).long()
-    s_keep, v_keep = slot[keep], vals[keep]
+def _disagree(got, want) -> int:
+    """Max abs difference of two integer tensors (0 when equal)."""
+    if got.equal(want):
+        return 0
+    return int((got.long() - want.long()).abs().max())
 
-    def library():
+
+def arena_phase(torch, K, rec):
+    """K2: the claim (rank and cnt), the write and the whole function
+    against their twins, bitwise, on the ring path's first step and on
+    four variants of its rows (an in-batch overflow, a power-of-two
+    bucket count, no valid row, one bucket spanning several 4096-row
+    blocks of the claim); then call ms, device ms, plain ms, bound and
+    yardstick of each half and of the whole, at the step's shape."""
+    if rec.claim is None or rec.write is None:
+        fail("no arena_claim / arena_write call was recorded")
+    bucket, valid, n_b = rec.claim
+    entries, wargs = rec.write
+    _, _, wbucket, base, slot0, depth, vals, wvalid = wargs
+    if not (wbucket.equal(bucket) and wvalid.equal(valid)):
+        fail("the step's claim and write saw different rows")
+    n = bucket.numel()
+    d0 = int(depth[0])
+
+    def bucket0(k):
+        # k rows of global bucket 0 (the service family's first bucket:
+        # slot0 0, its depth) ahead of the step's rows; one cursor a
+        # bucket, so every row of bucket 0 carries the same base.
+        ob, obase, oslot0, odepth, ovalid = (
+            bucket.clone(), base.clone(), slot0.clone(), depth.clone(),
+            valid.clone())
+        ob[:k], oslot0[:k], odepth[:k], ovalid[:k] = 0, 0, d0, True
+        obase[ob == 0] = 12345
+        return ob, obase, oslot0, odepth, vals, ovalid
+
+    rows = (bucket, base, slot0, depth, vals, valid)
+    cases = [
+        ("main-path step", rows, n_b),
+        ("in-batch overflow", bucket0(min(n, 2 * d0 + 1)), n_b),
+        ("n_buckets a power of two", rows, 1 << n_b.bit_length()),
+        ("all rows invalid", rows[:5] + (torch.zeros_like(valid),), n_b),
+        ("one bucket over several blocks",
+         bucket0(min(n, 5 * 4096 + 123)), n_b),
+    ]
+    for label, (b, bs, s0, dp, vl, v), nb in cases:
+        want_r, want_c = K.arena_claim_plain(b, v, nb)
+        got_r, got_c = K.arena_claim(b, v, nb)
+        err = max(_disagree(got_r, want_r), _disagree(got_c, want_c))
+        if err:
+            fail(f"arena_claim ({label}) disagrees (max err {err})")
+        want = K.arena_write_plain(entries.clone(), want_r, want_c, b, bs,
+                                   s0, dp, vl, v)
+        got = K.arena_write(entries.clone(), got_r, got_c, b, bs, s0, dp,
+                            vl, v)
+        err = _disagree(got, want)
+        if err:
+            fail(f"arena_write ({label}) disagrees (max err {err})")
+        del got, want
+        want = K.arena_claim_scatter_plain(entries.clone(), b, bs, s0, dp,
+                                           vl, v, nb)
+        got = K.arena_claim_scatter(entries.clone(), b, bs, s0, dp, vl, v,
+                                    n_buckets=nb)
+        err = _disagree(got, want)
+        if err:
+            fail(f"arena_claim_scatter ({label}) disagrees (max err {err})")
+        del got, want
+        log(f"arena ({label}): claim, write and composite equal their "
+            f"twins ({n} rows, {nb} buckets)")
+
+    rank, cnt = K.arena_claim_plain(bucket, valid, n_b)
+    wrow = (rank, cnt, bucket, base, slot0, depth, vals, valid)
+    scratch = entries.clone()
+    bl = bucket.long()
+    keep = valid & (rank >= cnt[bl] - depth)
+    survivors = int(keep.sum())
+    s_keep = slot0[keep] + ((base[keep] + rank[keep]) % depth[keep]).long()
+    v_keep = vals[keep]
+    key = torch.where(valid, bucket, torch.full_like(bucket, n_b))
+
+    def unique_scatter():
         scratch[s_keep] = v_keep
 
-    lib = time_ms(torch, library, reps=5)
-    n = bucket.numel()
-    survivors = int(keep.sum())
-    nbytes = n * (5 * 4 + 24) + survivors * 24
+    claim_peak = "not measured"
+    if bucket.is_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        K.arena_claim(bucket, valid, n_b)
+        torch.cuda.synchronize()
+        claim_peak = torch.cuda.max_memory_allocated() - before
+
+    def bound(nbytes):
+        return nbytes / H100_BYTES_PER_S * 1e3
+
+    row_in = 4 + 4 + 8 + 4 + 1 + 24  # bucket, base, slot0, depth, valid, vals
+    halves = {
+        "arena_claim": {
+            "ms": time_ms(torch, lambda: K.arena_claim(bucket, valid, n_b)),
+            "device_ms": device_ms(torch, lambda: K.arena_claim(
+                bucket, valid, n_b), ("arena_claim", "Memset")),
+            "plain_ms": time_ms(torch, lambda: K.arena_claim_plain(
+                bucket, valid, n_b), reps=5),
+            "library_ms": time_ms(torch, lambda: torch.sort(key,
+                                                            stable=True)),
+            "library": "torch.sort(key, stable=True), int32 keys",
+            # bucket and valid in, rank and the counts out
+            "bound_ms": bound(n * (4 + 1 + 4) + n_b * 4),
+            "bound_by": "bytes", "peak_bytes": claim_peak},
+        "arena_write": {
+            "ms": time_ms(torch, lambda: K.arena_write(scratch, *wrow)),
+            "device_ms": device_ms(torch, lambda: K.arena_write(
+                scratch, *wrow), "arena_write"),
+            "plain_ms": time_ms(torch, lambda: K.arena_write_plain(
+                scratch, *wrow), reps=5),
+            "library_ms": time_ms(torch, unique_scatter, reps=5),
+            "library": "index_put of the precomputed survivors",
+            # the rows and rank in, the counts, the survivors out
+            "bound_ms": bound(n * (row_in + 4) + n_b * 4 + survivors * 24),
+            "bound_by": "bytes"},
+    }
+    whole = {
+        "ms": time_ms(torch, lambda: K.arena_claim_scatter(
+            scratch, *rows, n_buckets=n_b), reps=5),
+        "device_ms": device_ms(torch, lambda: K.arena_claim_scatter(
+            scratch, *rows, n_buckets=n_b), ("arena_", "Memset"), reps=5),
+        "plain_ms": time_ms(torch, lambda: K.arena_claim_scatter_plain(
+            scratch, *rows, n_b), reps=5),
+        "bound_ms": bound(n * row_in + survivors * 24),
+        "bound_by": "bytes", "library_ms": None,
+    }
     row = {"arena_rows": entries.shape[0], "rows": n, "buckets": n_b,
-           "survivors": survivors, "cases": out, "ms": ms,
-           "device_ms": dev_ms,
-           "plain_ms": plain, "library_ms": lib,
-           "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "max_abs_err": 0}
+           "survivors": survivors, "cases": [c[0] for c in cases],
+           "halves": halves, **whole, "max_abs_err": 0}
     log("arena_claim_scatter: " + json.dumps(row))
     return row
 
@@ -681,7 +829,8 @@ def arena_phase(torch, K, rec):
 def gather_phase(torch, K, rec):
     """K3 against its twin on the paged reads' largest page list and on
     that list with hole pages (front, middle, past the last page, end);
-    times kernel, twin and ``torch.index_select`` on a pre-stacked
+    times the call (column table cached, and rebuilt every call), the
+    kernel alone, the twin and ``torch.index_select`` on a pre-stacked
     [14, capacity] int64 matrix (the stack itself not timed)."""
     if rec.gather is None:
         fail("no paged_page_gather call was recorded")
@@ -699,6 +848,12 @@ def gather_phase(torch, K, rec):
             fail(f"paged_page_gather ({label}) disagrees (max err {err})")
     ms = time_ms(torch, lambda: K.paged_page_gather(cols, pages, R),
                  reps=20)
+
+    def uncached():
+        K._GATHER_TABLES.clear()
+        return K.paged_page_gather(cols, pages, R)
+
+    uncached_ms = time_ms(torch, uncached, reps=20)
     plain = time_ms(torch, lambda: K.paged_page_gather_plain(cols, pages,
                                                              R), reps=20)
     dev_ms = device_ms(torch, lambda: K.paged_page_gather(cols, pages, R),
@@ -716,7 +871,7 @@ def gather_phase(torch, K, rec):
     row = {"pages": k, "live_pages": k_real, "page_rows": R,
            "columns": len(cols), "capacity": cols[0].numel(),
            "cases": ["main-path read", "hole pages"], "ms": ms,
-           "device_ms": dev_ms,
+           "uncached_ms": uncached_ms, "device_ms": dev_ms,
            "plain_ms": plain, "library_ms": lib,
            "bound_ms": (read_b + write_b) / H100_BYTES_PER_S * 1e3,
            "bytes": read_b + write_b, "max_abs_err": 0}
@@ -782,9 +937,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny CPU run of the same flow; prints no result")
-    ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="profile N more launches of the stream "
-                         "(torch.profiler): kernel time and idle share")
+    ap.add_argument("--profile", type=int, default=3, metavar="N",
+                    help="profile N more launches of the ring stream "
+                         "(torch.profiler): kernel time and idle share; "
+                         "0 skips it")
     args = ap.parse_args()
     import torch
 
@@ -855,16 +1011,18 @@ def main() -> int:
         {"name": "arena_claim_scatter", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/arena_claim_scatter.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:247",
-         "launches": result["kernel_launches"]["arena_claim_scatter"],
-         "launches_by_path": {p: v["arena_claim_scatter"]
+         "launches": result["kernel_launches"]["arena_claim"],
+         "launches_by_path": {p: {h: v[h] for h in arena["halves"]}
                               for p, v in by_path.items()},
          "max_abs_err": arena["max_abs_err"], "ms": arena["ms"],
          "device_ms": arena["device_ms"],
          "plain_ms": arena["plain_ms"],
          "bound_ms": arena["bound_ms"], "bound_by": "bytes",
-         "library_ms": arena["library_ms"],
+         "library_ms": None,
+         "halves": {h: {**v, "launches": result["kernel_launches"][h]}
+                    for h, v in arena["halves"].items()},
          "shape": {"arena_rows": arena["arena_rows"],
-                   "rows": arena["rows"]}},
+                   "rows": arena["rows"], "buckets": arena["buckets"]}},
         {"name": "paged_page_gather", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/paged_page_gather.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:357",
@@ -872,6 +1030,7 @@ def main() -> int:
          "launches_by_path": {p: v["paged_page_gather"]
                               for p, v in by_path.items()},
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
+         "uncached_ms": gather["uncached_ms"],
          "device_ms": gather["device_ms"],
          "plain_ms": gather["plain_ms"],
          "bound_ms": gather["bound_ms"], "bound_by": "bytes",

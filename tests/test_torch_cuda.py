@@ -61,16 +61,89 @@ def test_cuda_histogram_matches_twin(cuda, m):
     np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
 
 
+def _on(args, device):
+    return tuple(a.to(device) if torch.is_tensor(a) else a for a in args)
+
+
+def _claim_case(seed, n, variant, n_b=997):
+    """Claim rows: ``odd`` and ``pow2`` bucket counts (the sentinel of a
+    power of two needs one more key bit), ``invalid`` (no valid row),
+    ``hot`` (half the rows in one bucket: it spans many 4096-row blocks
+    and overflows any depth)."""
+    rng = np.random.default_rng(seed)
+    if variant == "pow2":
+        n_b = 1 << max(1, (n_b - 1).bit_length())
+    bucket = rng.integers(0, n_b, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    if variant == "invalid":
+        valid[:] = False
+    if variant == "hot":
+        hot = rng.random(n) < 0.5
+        bucket[hot] = 5
+        valid[hot] = True
+    return torch.from_numpy(bucket), torch.from_numpy(valid), n_b
+
+
+def _check_claim_write(cuda, bucket, valid, n_b, depth=16, seed=0):
+    """Claim, write and their composite on the card against the twins,
+    bitwise, on one arena."""
+    rng = np.random.default_rng(seed)
+    n = bucket.shape[0]
+    want_r, want_c = K.arena_claim_plain(bucket, valid, n_b)
+    before = dict(K.LAUNCHES)
+    rank, cnt = K.arena_claim(bucket.to(cuda), valid.to(cuda), n_b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["arena_claim"] == before["arena_claim"] + 1
+    np.testing.assert_array_equal(want_r.numpy(), rank.cpu().numpy())
+    np.testing.assert_array_equal(want_c.numpy(), cnt.cpu().numpy())
+    pos = rng.integers(0, 2**33, n_b)
+    bl = bucket.long().clamp(0, n_b - 1)
+    args = (torch.from_numpy(rng.integers(-2**62, 2**62, (n_b * depth, 3))),
+            bucket,
+            torch.from_numpy((pos & 0xFFFFFFFF).astype(np.uint32)
+                             .view(np.int32))[bl],
+            bl * depth, torch.full((n,), depth, dtype=torch.int32),
+            torch.from_numpy(rng.integers(-2**62, 2**62, (n, 3))), valid)
+    entries, bucket, base, slot0, dvec, vals, valid = args
+    want = K.arena_write_plain(entries.clone(), want_r, want_c, bucket, base,
+                               slot0, dvec, vals, valid)
+    got = K.arena_write(*_on((entries, rank, cnt, bucket, base, slot0, dvec,
+                              vals, valid), cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["arena_write"] == before["arena_write"] + 1
+    np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
+    whole = K.arena_claim_scatter(*_on(args, cuda), n_buckets=n_b)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        K.arena_claim_scatter_plain(entries.clone(), *args[1:], n_b).numpy(),
+        whole.cpu().numpy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [7, 300, 1024, 100_000])
 def test_cuda_arena_matches_twin(cuda, n):
     args = _arena_case(5 + n, n, n_b=997, depth=16)
     want = K.arena_claim_scatter(*(a.clone() if torch.is_tensor(a) else a
                                    for a in args))
-    got = K.arena_claim_scatter(*(a.to(cuda) if torch.is_tensor(a) else a
-                                  for a in args))
+    got = K.arena_claim_scatter(*_on(args, cuda))
     torch.cuda.synchronize()
     np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["odd", "pow2", "invalid", "hot"])
+@pytest.mark.parametrize("n", [7, 300, 1024, 100_000])
+def test_cuda_arena_claim_write_match_twins(cuda, n, variant):
+    _check_claim_write(cuda, *_claim_case(n, n, variant), seed=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["odd", "pow2"])
+def test_cuda_arena_claim_write_main_path_shape(cuda, variant):
+    # The ring path's launch: 2,097,152 index rows into 877,544 buckets
+    # (2^20 in the power-of-two case: 21 key bits).
+    _check_claim_write(cuda, *_claim_case(3, 2_097_152, variant,
+                                          n_b=877_544), depth=4)
 
 
 @pytest.mark.cuda
@@ -80,25 +153,31 @@ def test_cuda_wrappers_check_inputs(cuda):
         K.histogram_update(counts, torch.zeros(4, dtype=torch.int64,
                                                device=cuda),
                            torch.ones(4, dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):
+        K.arena_claim(torch.zeros(4, dtype=torch.int64, device=cuda),
+                      torch.ones(4, dtype=torch.bool, device=cuda), 8)
+    with pytest.raises(ValueError):
+        K.arena_claim(torch.zeros(4, dtype=torch.int32, device=cuda),
+                      torch.ones(4, dtype=torch.bool, device=cuda), 0)
 
 
 @pytest.mark.cuda
-def test_cuda_arena_long_tiles_and_overflow(cuda, monkeypatch):
-    # A small scratch budget forces 3 tiles of ~17k rows: the in-tile
-    # predecessor scan crosses many 256-row chunks.
-    monkeypatch.setattr(K, "ARENA_SCRATCH_CELLS", 997 * 3)
+def test_cuda_arena_hot_bucket_spans_blocks(cuda):
+    # One bucket holds 20,000 rows in a row, across five 4096-row blocks
+    # of the claim's radix passes, and overflows its depth of 16 inside
+    # the batch; the rest is the usual mix.
     args = list(_arena_case(1, 50_000, 997, 16))
-    n_over = 40  # one bucket overflows its depth of 16 inside the batch
-    args[1][:n_over] = 3
-    args[2][:n_over] = 7
-    args[3][:n_over] = 3 * 16
-    args[6][:n_over] = True
+    hot = slice(5_000, 25_000)
+    args[1][hot] = 3
+    args[2][args[1] == 3] = 7
+    args[3][hot] = 3 * 16
+    args[6][hot] = True
     want = K.arena_claim_scatter(*(a.clone() if torch.is_tensor(a) else a
                                    for a in args))
-    got = K.arena_claim_scatter(*(a.to(cuda) if torch.is_tensor(a) else a
-                                  for a in args))
+    got = K.arena_claim_scatter(*_on(args, cuda))
     torch.cuda.synchronize()
     np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
+    _check_claim_write(cuda, args[1], args[6], 997, seed=1)
 
 
 def _gather_case(seed, page_rows, k, n_pages=64):
@@ -134,9 +213,37 @@ def test_cuda_page_gather_matches_twin(cuda, page_rows, k):
 
 
 @pytest.mark.cuda
+def test_cuda_page_gather_cache_sees_replaced_column(cuda):
+    cols, pages = _gather_case(9, 128, 32)
+    dcols = [c.to(cuda) for c in cols]
+    first = K.paged_page_gather(dcols, pages.to(cuda), 128)
+    again = K.paged_page_gather(dcols, pages.to(cuda), 128)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    # A column replaced by a new tensor (another address) is read anew.
+    cols[5] = torch.from_numpy(np.random.default_rng(1).integers(
+        -2**62, 2**62, cols[5].shape[0]))
+    old5 = dcols[5]
+    dcols[5] = cols[5].to(cuda)
+    got = K.paged_page_gather(dcols, pages.to(cuda), 128)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        K.paged_page_gather(cols, pages, 128).numpy(), got.cpu().numpy())
+    # An int64 column replaced by an int32 one at the same address (a
+    # view of the same storage) misses too, and is sign-extended.
+    dcols[5] = old5.view(torch.int32)[:old5.shape[0]]
+    got = K.paged_page_gather(dcols, pages.to(cuda), 128)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        K.paged_page_gather([c.cpu() for c in dcols], pages, 128).numpy(),
+        got.cpu().numpy())
+
+
+@pytest.mark.cuda
 def test_cuda_page_gather_checks_inputs(cuda):
     cols, pages = _gather_case(0, 128, 8)
     cols = [c.to(cuda) for c in cols]
+    K.paged_page_gather(cols, pages.to(cuda), 128)  # caches the table
     with pytest.raises(TypeError):
         K.paged_page_gather(cols, pages.to(cuda).long(), 128)
     with pytest.raises(ValueError):

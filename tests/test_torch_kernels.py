@@ -1,7 +1,8 @@
-"""The port's two kernels: plain twins against the JAX package's Pallas
-kernels (interpret mode on the CPU, as tests/test_pallas_kernels.py
-runs them) and its XLA formulations, bitwise. The CUDA kernels against
-their twins are in tests/test_torch_cuda.py."""
+"""The port's flat-histogram and arena kernels: plain twins against the
+JAX package's Pallas kernels (interpret mode on the CPU, as
+tests/test_pallas_kernels.py runs them) and its XLA formulations,
+bitwise. The CUDA kernels against their twins are in
+tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -81,6 +82,13 @@ def test_arena_twin_matches_pallas(n):
         jnp.asarray(valid), n_buckets=n_b, tile=256)
     got = K.arena_claim_scatter(*_torch_args(case))
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    # The write twin composed with the claim twin, as the step calls them.
+    entries_t, bucket_t, base_t, slot0_t, dvec_t, vals_t, valid_t, _ = \
+        _torch_args(case)
+    rank, cnt = K.arena_claim_plain(bucket_t, valid_t, n_b)
+    composed = K.arena_write_plain(entries_t, rank, cnt, bucket_t, base_t,
+                                   slot0_t, dvec_t, vals_t, valid_t)
+    np.testing.assert_array_equal(np.asarray(want), composed.numpy())
 
 
 def test_arena_twin_single_bucket_overflow():
@@ -107,3 +115,50 @@ def test_fifo_ranks_match_reference():
     want = np.asarray(dev._fifo_ranks(jnp.asarray(b), jnp.asarray(v), 40))
     got = K.fifo_ranks(torch.from_numpy(b), torch.from_numpy(v), 40)
     np.testing.assert_array_equal(want, got.numpy())
+
+
+def _claim_case(seed, n, variant):
+    """Rows for the claim: ``odd`` and ``pow2`` bucket counts (the
+    sentinel of a power of two needs one more key bit), ``invalid`` (no
+    valid row) and ``hot`` (half the rows in one bucket, far past any
+    depth)."""
+    rng = np.random.default_rng(seed)
+    n_b = 1024 if variant == "pow2" else 997
+    bucket = rng.integers(0, n_b, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    if variant == "invalid":
+        valid[:] = False
+    if variant == "hot":
+        hot = rng.random(n) < 0.5
+        bucket[hot] = 5
+        valid[hot] = True
+    return bucket, valid, n_b
+
+
+@pytest.mark.parametrize("variant", ["odd", "pow2", "invalid", "hot"])
+@pytest.mark.parametrize("n", [7, 300, 1024, 100_000])
+def test_arena_claim_twin_matches_reference(n, variant):
+    bucket, valid, n_b = _claim_case(n, n, variant)
+    jb, jv = jnp.asarray(bucket), jnp.asarray(valid)
+    rank, cnt = K.arena_claim(torch.from_numpy(bucket),
+                              torch.from_numpy(valid), n_b)
+    assert rank.dtype == torch.int32 and cnt.dtype == torch.int32
+    assert tuple(cnt.shape) == (n_b,)
+    np.testing.assert_array_equal(
+        np.asarray(dev._fifo_ranks(jb, jv, n_b)), rank.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(dev._fifo_ranks_counting(jb, jv, n_b, 8)), rank.numpy())
+    np.testing.assert_array_equal(
+        np.bincount(bucket[valid], minlength=n_b), cnt.numpy())
+    assert K.LAUNCHES["arena_claim"] == 0  # twins never count
+
+
+def test_arena_claim_out_of_range_rows_rank_as_invalid():
+    # A valid row outside [0, n_buckets) ranks among the invalid rows and
+    # counts nowhere (the CUDA kernel's rule; the step never makes one).
+    bucket = np.array([3, 9, -1, 3, 0, 12], np.int32)
+    valid = np.array([1, 1, 1, 0, 1, 1], bool)
+    rank, cnt = K.arena_claim_plain(torch.from_numpy(bucket),
+                                    torch.from_numpy(valid), 4)
+    np.testing.assert_array_equal(rank.numpy(), [0, 0, 1, 2, 0, 3])
+    np.testing.assert_array_equal(cnt.numpy(), [1, 0, 0, 1])

@@ -106,7 +106,7 @@ def to_port(db):
 
 
 @pytest.mark.parametrize("rank_path,use_kernels", [
-    ("auto", False), ("counting", True)])
+    ("auto", False), ("counting", True), ("counting", False)])
 def test_ingest_steps_match_reference(rank_path, use_kernels):
     """Laps every ring, overflows index buckets inside one batch, leaves
     children pending across sweeps and closes dependency buckets; the
@@ -167,6 +167,30 @@ def test_ingest_steps_match_reference(rank_path, use_kernels):
     assert int(ref["counters"]["sweeps"]) >= 1
     np.testing.assert_array_equal(
         tdev.counter_block(tst).numpy(), np.asarray(dev.counter_block(jst)))
+
+
+def test_step_claims_only_in_range_buckets(monkeypatch):
+    """Every valid index row the step hands the arena claim lies in [0,
+    n_buckets) (seg() clips), so the claim's rule for a valid row out of
+    that range (ranked and counted as invalid) never applies."""
+    seen = []
+    claim = tdev.K.arena_claim
+
+    def checked(bucket, valid, n_buckets):
+        b = bucket[valid]
+        assert bool(((b >= 0) & (b < n_buckets)).all())
+        seen.append(int(valid.sum()))
+        return claim(bucket, valid, n_buckets)
+
+    monkeypatch.setattr(tdev.K, "arena_claim", checked)
+    tst = tdev.init_state(tdev.StoreConfig(**SMALL, use_pallas=True),
+                          device="cpu")
+    parts = padded_batches(300, 160, seed=3)[:6]
+    for b, lc, ix in parts:
+        db = dev.make_device_batch(b, lc, ix, _pow2(b.n_spans),
+                                   _pow2(b.n_annotations), _pow2(b.n_binary))
+        tdev.ingest_step(tst, tdev.batch_to_device(to_port(db), "cpu"))
+    assert len(seen) == len(parts) and min(seen) > 0
 
 
 def test_state_roundtrip_and_plane_order():

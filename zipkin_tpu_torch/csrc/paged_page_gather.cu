@@ -23,7 +23,10 @@
 // coalesced loads (neighbouring threads on neighbouring rows), sign-extend
 // int32 columns, and write R contiguous int64 values of the output row.
 // Hole pages write zeros. No shared memory, no atomics; blocks are
-// independent, so the result does not depend on their order.
+// independent, so the result does not depend on their order. The wrapper
+// validates a column set once and keeps its pointer table
+// (zipkin_tpu_torch/ops/kernels.py:_gather_table), so a repeat call is one
+// check of ``pages``, one allocation and this launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,9 +1,13 @@
-"""The store's three hand-written CUDA kernels, with their plain twins.
+"""The store's hand-written CUDA kernels, with their plain twins.
 
 - ``histogram_update`` -> ``csrc/flat_histogram.cu``: replaces the TPU
   kernel ``zipkin_tpu/ops/pallas_kernels.py:flat_histogram``.
-- ``arena_claim_scatter`` -> ``csrc/arena_claim_scatter.cu``: replaces
-  ``zipkin_tpu/ops/pallas_kernels.py:arena_claim_scatter``.
+- ``arena_claim`` + ``arena_write`` -> ``csrc/arena_claim_scatter.cu``:
+  together they replace ``zipkin_tpu/ops/pallas_kernels.py:
+  arena_claim_scatter`` (``arena_claim_scatter`` here calls the two). The
+  claim gives every row's FIFO rank and every bucket's count, which the
+  ingest step needs before the write anyway; the write stores the
+  survivors.
 - ``paged_page_gather`` -> ``csrc/paged_page_gather.cu``: replaces
   ``zipkin_tpu/ops/pallas_kernels.py:paged_page_gather``. It reads the
   span columns in place, so the [2 x 14, capacity] int32 plane matrix
@@ -20,13 +24,14 @@ through the kernels.
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 plain-C shared libraries under ``build/zipkin_tpu_torch/`` next to the
 package (``build/`` is listed in ``.gitignore``) and loaded with
-``ctypes``; ``build_all()`` compiles all three at once, one ``nvcc`` per
-source, started together.
+``ctypes``; ``build_all()`` compiles every source at once, one ``nvcc``
+per source, started together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import operator
 import os
 import subprocess
 import time
@@ -39,8 +44,10 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "zipkin_tpu_torch"
 SOURCES = ("flat_histogram", "arena_claim_scatter", "paged_page_gather")
+KERNELS = ("flat_histogram", "arena_claim", "arena_write",
+           "paged_page_gather")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -48,17 +55,19 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "zt_flat_histogram": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                           _P],
-    "zt_arena_claim_scatter": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        _P,
-    ],
+    "zt_arena_claim": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
+                       _P],
+    "zt_arena_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                       _P],
+    "zt_arena_claim_scratch": [ctypes.c_longlong, ctypes.c_int],
     "zt_paged_page_gather": [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
         ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         _P,
     ],
 }
+_RESTYPES = {"zt_arena_claim_scratch": ctypes.c_longlong}
 
 
 def reset_launches() -> None:
@@ -125,7 +134,7 @@ def _lib(name: str) -> ctypes.CDLL:
         for fn, argtypes in _ARGTYPES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         _LIBS[name] = lib
     return lib
 
@@ -148,8 +157,11 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(dev: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``dev`` (what
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, without
+    building a Stream object on every call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +195,7 @@ def histogram_update(counts: torch.Tensor, idx: torch.Tensor,
     _check(weights, "weights", torch.int32, dev, (n,))
     rc = _lib("flat_histogram").zt_flat_histogram(
         counts.data_ptr(), idx.data_ptr(), weights.data_ptr(), n,
-        counts.numel(), _stream())
+        counts.numel(), _stream(dev))
     _raise_on(rc, "flat_histogram")
     LAUNCHES["flat_histogram"] += 1
     return counts
@@ -197,12 +209,8 @@ def flat_histogram(idx: torch.Tensor, weights: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K2: fused FIFO claim + arena entry write
+# K2: FIFO claim (arena_claim) + arena entry write (arena_write)
 # ---------------------------------------------------------------------------
-
-# Scratch budget of the [tiles, buckets] int32 count matrix (256 MiB).
-ARENA_SCRATCH_CELLS = 1 << 26
-ARENA_ROWS = 256
 
 
 def fifo_ranks(bucket: torch.Tensor, valid: torch.Tensor,
@@ -227,43 +235,87 @@ def fifo_ranks(bucket: torch.Tensor, valid: torch.Tensor,
     return rank
 
 
-def arena_claim_scatter_plain(entries, bucket, base, slot0, depth, vals,
-                              valid, n_buckets: int) -> torch.Tensor:
-    """Plain twin: the reference's XLA formulation — FIFO ranks, keep
-    the newest ``depth`` rows per bucket, unique row scatter of the
-    survivors (in place)."""
-    rank = fifo_ranks(bucket, valid, n_buckets)
-    b = bucket.to(torch.int64).clamp(0, n_buckets - 1)
-    cnt = torch.zeros(n_buckets + 1, dtype=torch.int32,
-                      device=bucket.device)
-    cnt.index_add_(0, torch.where(valid, b, torch.full_like(b, n_buckets)),
+def arena_claim_plain(bucket: torch.Tensor, valid: torch.Tensor,
+                      n_buckets: int):
+    """Plain twin of the claim: ``(fifo_ranks, cnt)``, ``cnt`` the int32
+    [n_buckets] count of valid rows per bucket. A valid row whose bucket
+    lies outside [0, n_buckets) is taken as invalid (the step's seg()
+    clips every bucket, so it never makes one)."""
+    b = bucket.to(torch.int64)
+    ok = valid & (b >= 0) & (b < n_buckets)
+    rank = fifo_ranks(bucket, ok, n_buckets)
+    cnt = torch.zeros(n_buckets + 1, dtype=torch.int32, device=bucket.device)
+    cnt.index_add_(0, torch.where(ok, b, torch.full_like(b, n_buckets)),
                    torch.ones_like(rank))
+    return rank, cnt[:n_buckets]
+
+
+def arena_claim(bucket: torch.Tensor, valid: torch.Tensor, n_buckets: int):
+    """Each row's FIFO rank within its bucket and each bucket's count of
+    valid rows, bitwise ``arena_claim_plain``: ``(rank int32 [n], cnt
+    int32 [n_buckets])``. ``bucket`` int32, ``valid`` bool."""
+    if bucket.device.type == "cpu":
+        return arena_claim_plain(bucket, valid, n_buckets)
+    dev = bucket.device
+    n = bucket.shape[0]
+    _check(bucket, "bucket", torch.int32, dev, (n,))
+    _check(valid, "valid", torch.bool, dev, (n,))
+    if not 0 < n_buckets < (1 << 31) - 1:
+        raise ValueError(f"n_buckets out of range: {n_buckets}")
+    if n >= 1 << 31:
+        raise ValueError(f"arena_claim: {n} rows, at most 2^31 - 1")
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return rank, torch.zeros(n_buckets, dtype=torch.int32, device=dev)
+    cnt = torch.empty(n_buckets + 1, dtype=torch.int32, device=dev)
+    lib = _lib("arena_claim_scatter")
+    scratch = torch.empty(lib.zt_arena_claim_scratch(n, n_buckets),
+                          dtype=torch.int32, device=dev)
+    rc = lib.zt_arena_claim(bucket.data_ptr(), valid.data_ptr(), n,
+                            n_buckets, rank.data_ptr(), cnt.data_ptr(),
+                            scratch.data_ptr(), _stream(dev))
+    _raise_on(rc, "arena_claim")
+    LAUNCHES["arena_claim"] += 1
+    return rank, cnt[:n_buckets]
+
+
+def arena_write_plain(entries, rank, cnt, bucket, base, slot0, depth, vals,
+                      valid) -> torch.Tensor:
+    """Plain twin of the write: the masked unique scatter of the
+    survivors (rank >= cnt[bucket] - depth) at slot0 + ((base + rank) &
+    (depth - 1)), in place; rows out of range of the buckets or of the
+    arena are dropped."""
+    n_b = cnt.shape[0]
+    b = bucket.to(torch.int64)
+    ok = valid & (b >= 0) & (b < n_b)
+    b = b.clamp(0, n_b - 1)
     d = depth.to(torch.int32)
-    keep = valid & (rank >= cnt[b] - d)
     slot = slot0.to(torch.int64) + ((base.to(torch.int32) + rank) % d).to(
         torch.int64)
+    keep = (ok & (rank >= cnt[b] - d) & (slot >= 0)
+            & (slot < entries.shape[0]))
     entries[slot[keep]] = vals[keep]
     return entries
 
 
-def arena_claim_scatter(entries: torch.Tensor, bucket: torch.Tensor,
-                        base: torch.Tensor, slot0: torch.Tensor,
-                        depth: torch.Tensor, vals: torch.Tensor,
-                        valid: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """Fused FIFO claim + entry-row scatter over the unified [slots, 3]
-    int64 index arena, same signature as the TPU kernel: ``bucket``
-    clipped to [0, n_buckets); ``base`` each row's bucket cursor low
-    word; ``slot0`` the bucket's first arena row; ``depth`` per-row
-    powers of two; ``vals`` [n, 3] int64. Returns the arena (updated in
-    place); the result is bitwise the arrival-order overwrite."""
+def arena_write(entries: torch.Tensor, rank: torch.Tensor, cnt: torch.Tensor,
+                bucket: torch.Tensor, base: torch.Tensor, slot0: torch.Tensor,
+                depth: torch.Tensor, vals: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Write the survivors' (gid, verify, ts) triples into the [slots, 3]
+    int64 arena in place, from the claim's ``rank`` and ``cnt``; bitwise
+    ``arena_write_plain``. Returns the arena."""
     if entries.device.type == "cpu":
-        return arena_claim_scatter_plain(entries, bucket, base, slot0,
-                                         depth, vals, valid, n_buckets)
+        return arena_write_plain(entries, rank, cnt, bucket, base, slot0,
+                                 depth, vals, valid)
     dev = entries.device
     n = bucket.shape[0]
+    n_b = cnt.shape[0]
     _check(entries, "entries", torch.int64, dev)
     if entries.dim() != 2 or entries.shape[1] != 3:
         raise ValueError("entries must be [slots, 3]")
+    _check(rank, "rank", torch.int32, dev, (n,))
+    _check(cnt, "cnt", torch.int32, dev, (n_b,))
     _check(bucket, "bucket", torch.int32, dev, (n,))
     _check(base, "base", torch.int32, dev, (n,))
     _check(slot0, "slot0", torch.int64, dev, (n,))
@@ -272,23 +324,39 @@ def arena_claim_scatter(entries: torch.Tensor, bucket: torch.Tensor,
     _check(valid, "valid", torch.bool, dev, (n,))
     if n == 0:
         return entries
-    if not 0 < n_buckets < (1 << 31):
-        raise ValueError(f"n_buckets out of range: {n_buckets}")
-    n_tiles = max(1, min(-(-n // ARENA_ROWS),
-                         ARENA_SCRATCH_CELLS // n_buckets))
-    tile = -(-n // n_tiles)
-    tile = -(-tile // ARENA_ROWS) * ARENA_ROWS
-    n_tiles = -(-n // tile)
-    tc = torch.empty(n_tiles * n_buckets, dtype=torch.int32, device=dev)
-    cnt = torch.empty(n_buckets, dtype=torch.int32, device=dev)
-    rc = _lib("arena_claim_scatter").zt_arena_claim_scatter(
-        entries.data_ptr(), bucket.data_ptr(), base.data_ptr(),
-        slot0.data_ptr(), depth.data_ptr(), vals.data_ptr(),
-        valid.data_ptr(), tc.data_ptr(), cnt.data_ptr(), n, n_buckets,
-        n_tiles, tile, entries.shape[0], _stream())
-    _raise_on(rc, "arena_claim_scatter")
-    LAUNCHES["arena_claim_scatter"] += 1
+    rc = _lib("arena_claim_scatter").zt_arena_write(
+        entries.data_ptr(), rank.data_ptr(), cnt.data_ptr(),
+        bucket.data_ptr(), base.data_ptr(), slot0.data_ptr(),
+        depth.data_ptr(), vals.data_ptr(), valid.data_ptr(), n, n_b,
+        entries.shape[0], _stream(dev))
+    _raise_on(rc, "arena_write")
+    LAUNCHES["arena_write"] += 1
     return entries
+
+
+def arena_claim_scatter_plain(entries, bucket, base, slot0, depth, vals,
+                              valid, n_buckets: int) -> torch.Tensor:
+    """Plain twin of the whole function: the reference's XLA formulation
+    (FIFO ranks, keep the newest ``depth`` rows per bucket, unique row
+    scatter of the survivors), in place."""
+    rank, cnt = arena_claim_plain(bucket, valid, n_buckets)
+    return arena_write_plain(entries, rank, cnt, bucket, base, slot0, depth,
+                             vals, valid)
+
+
+def arena_claim_scatter(entries: torch.Tensor, bucket: torch.Tensor,
+                        base: torch.Tensor, slot0: torch.Tensor,
+                        depth: torch.Tensor, vals: torch.Tensor,
+                        valid: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """FIFO claim + entry-row scatter over the unified [slots, 3] int64
+    index arena, same signature as the TPU kernel: ``bucket`` in [0,
+    n_buckets); ``base`` each row's bucket cursor low word; ``slot0`` the
+    bucket's first arena row; ``depth`` per-row powers of two; ``vals``
+    [n, 3] int64. The claim, then the write; returns the arena (updated
+    in place), bitwise the arrival-order overwrite."""
+    rank, cnt = arena_claim(bucket, valid, n_buckets)
+    return arena_write(entries, rank, cnt, bucket, base, slot0, depth, vals,
+                       valid)
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +364,8 @@ def arena_claim_scatter(entries: torch.Tensor, bucket: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 PAGE_GATHER_MAX_COLS = 16
+_GATHER_TABLES: Dict[tuple, tuple] = {}
+_DTYPE_OF = operator.attrgetter("dtype")
 
 
 def paged_page_gather_plain(cols, pages: torch.Tensor,
@@ -314,19 +384,18 @@ def paged_page_gather_plain(cols, pages: torch.Tensor,
     return torch.where(keep[None], out, torch.zeros_like(out))
 
 
-def paged_page_gather(cols, pages: torch.Tensor,
-                      page_rows: int) -> torch.Tensor:
-    """Gather ``K = len(pages)`` pages of ``page_rows`` rows out of the
-    span columns ``cols`` (each 1-D, contiguous, int64 or int32, one
-    length ``capacity``) into a new ``[len(cols), K * page_rows]`` int64
-    matrix: exactly what the TPU kernel's plane output gives once its
-    lo/hi planes are recombined to int64. Pages < 0 (or past the last
-    page) are holes and give zero blocks."""
-    if not cols:
-        raise ValueError("paged_page_gather: no columns")
-    dev = cols[0].device
-    if dev.type == "cpu":
-        return paged_page_gather_plain(cols, pages, page_rows)
+def _gather_table(cols, page_rows: int, dev):
+    """The validated foreign-call table of a column set: (ctypes column
+    pointers, ctypes element sizes, capacity). Cached by each column's
+    data_ptr, dtype, shape and stride (the whole memory the kernel
+    reads), so a repeat call with the same columns runs no per-column
+    check, and a column that was replaced misses."""
+    key = (page_rows, *map(torch.Tensor.data_ptr, cols),
+           *map(_DTYPE_OF, cols), *map(torch.Tensor.size, cols),
+           *map(torch.Tensor.stride, cols))
+    hit = _GATHER_TABLES.get(key)
+    if hit is not None:
+        return hit
     cap = cols[0].shape[0]
     if len(cols) > PAGE_GATHER_MAX_COLS:
         raise ValueError(f"paged_page_gather: at most "
@@ -340,17 +409,38 @@ def paged_page_gather(cols, pages: torch.Tensor,
             raise TypeError(f"cols[{i}]: expected int64 or int32, got "
                             f"{col.dtype}")
         _check(col, f"cols[{i}]", col.dtype, dev, (cap,))
+    table = ((ctypes.c_void_p * len(cols))(*(c.data_ptr() for c in cols)),
+             (ctypes.c_int * len(cols))(*(c.element_size() for c in cols)),
+             cap)
+    if len(_GATHER_TABLES) >= 8:
+        _GATHER_TABLES.clear()
+    _GATHER_TABLES[key] = table
+    return table
+
+
+def paged_page_gather(cols, pages: torch.Tensor,
+                      page_rows: int) -> torch.Tensor:
+    """Gather ``K = len(pages)`` pages of ``page_rows`` rows out of the
+    span columns ``cols`` (each 1-D, contiguous, int64 or int32, one
+    length ``capacity``) into a new ``[len(cols), K * page_rows]`` int64
+    matrix: exactly what the TPU kernel's plane output gives once its
+    lo/hi planes are recombined to int64. Pages < 0 (or past the last
+    page) are holes and give zero blocks."""
+    if not cols:
+        raise ValueError("paged_page_gather: no columns")
+    dev = cols[0].device
+    if dev.type == "cpu":
+        return paged_page_gather_plain(cols, pages, page_rows)
+    ptrs, sizes, cap = _gather_table(cols, page_rows, dev)
     k = pages.shape[0]
     _check(pages, "pages", torch.int32, dev, (k,))
     out = torch.empty((len(cols), k * page_rows), dtype=torch.int64,
                       device=dev)
     if k == 0:
         return out
-    ptrs = (ctypes.c_void_p * len(cols))(*(c.data_ptr() for c in cols))
-    sizes = (ctypes.c_int * len(cols))(*(c.element_size() for c in cols))
     rc = _lib("paged_page_gather").zt_paged_page_gather(
         ptrs, sizes, len(cols), pages.data_ptr(), out.data_ptr(), k,
-        page_rows, cap // page_rows, _stream())
+        page_rows, cap // page_rows, _stream(dev))
     _raise_on(rc, "paged_page_gather")
     LAUNCHES["paged_page_gather"] += 1
     return out

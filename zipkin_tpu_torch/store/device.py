@@ -15,8 +15,10 @@ own device. Where the JAX functions donate the state buffer
 the port updates the state IN PLACE and returns the same object.
 
 With ``StoreConfig.use_pallas`` the step routes its seven scatter-adds
-through the flat-histogram kernel and the arena entry write through the
-claim-scatter kernel, and the paged trace read gathers its pages through
+through the flat-histogram kernel, takes the index rows' FIFO ranks and
+bucket counts from the arena claim kernel (in place of either rank path)
+and the arena entry write from the arena write kernel, and the paged
+trace read gathers its pages through
 the page-gather kernel (``ops/kernels.py``); on CPU tensors those
 wrappers run their plain twins. Both span layouts are ported:
 ``layout="ring"`` and ``layout="paged"`` (slots and gids planned by the
@@ -731,15 +733,22 @@ def _index_write(entries, pos, wm, key_tab, key_wm, ann_poison,
     and returns the number of keyed rows whose claim found no slot."""
     dev = entries.device
     n_b = pos.shape[0]
-    rank_kind, rank_blk = rank_sel
-    if rank_kind == "counting":
-        rank = _fifo_ranks_counting(gbucket, valid, n_b, rank_blk)
-    else:
-        rank = _fifo_ranks(gbucket, valid, n_b)
     b_c = torch.clamp(gbucket.to(torch.int64), 0, n_b - 1)
-    oob_b = torch.where(valid, b_c, torch.full_like(b_c, n_b))
-    cnt = torch.zeros(n_b + 1, dtype=torch.int32, device=dev).index_add_(
-        0, oob_b, torch.ones_like(rank))[:n_b]
+    if use_kernel:
+        # The claim kernel gives both rank paths' ranks (bitwise) and the
+        # bucket counts in one call; the write below reuses them.
+        bucket32 = gbucket.to(torch.int32).contiguous()
+        rank, cnt = K.arena_claim(bucket32, valid.contiguous(), n_b)
+    else:
+        rank_kind, rank_blk = rank_sel
+        if rank_kind == "counting":
+            rank = _fifo_ranks_counting(gbucket, valid, n_b, rank_blk)
+        else:
+            rank = _fifo_ranks(gbucket, valid, n_b)
+        oob_b = torch.where(valid, b_c, torch.full_like(b_c, n_b))
+        cnt = torch.zeros(n_b + 1, dtype=torch.int32,
+                          device=dev).index_add_(
+            0, oob_b, torch.ones_like(rank))[:n_b]
     keep = valid & (rank >= cnt[b_c] - depth)
     pos_b = _p32(pos)[:, 0][b_c]
     slot = slot0.to(torch.int32) + ((pos_b + rank) % depth)
@@ -760,11 +769,10 @@ def _index_write(entries, pos, wm, key_tab, key_wm, ann_poison,
     tr_ok = occupied[trc] | (valid[trc] & ~keep[trc])
     vals = torch.stack([gid, verify, ts], dim=-1)
     if use_kernel:
-        K.arena_claim_scatter(
-            entries, b_c.to(torch.int32), pos_b.contiguous(),
-            slot0.to(torch.int64).contiguous(),
-            depth.to(torch.int32).contiguous(), vals.contiguous(),
-            valid.contiguous(), n_buckets=n_b)
+        K.arena_write(entries, rank, cnt, bucket32, pos_b.contiguous(),
+                      slot0.to(torch.int64).contiguous(),
+                      depth.to(torch.int32).contiguous(), vals.contiguous(),
+                      valid.contiguous())
     else:
         _uset_cols64(entries, slot, vals, keep)
     pos += cnt.to(torch.int64)
