@@ -14,14 +14,19 @@ nvcc per source, started together), then
    more launches (``--profile``: device time by kernel, idle share),
    applies ~2000 known traces and queries them with known answers; the
    launch counters of the flat histogram and of both arena halves
-   (claim, write), zeroed just before the drive, must have advanced;
+   (claim, write), zeroed just before the drive, must have advanced,
+   the flat histogram's by exactly one an ingest step (the step's seven
+   scatter-add sites are one fused launch);
 2. drives the paged layout the same way (128-row pages, 32,768 pages):
    >= 39 launches so the page pool runs out and pages are reclaimed,
    then the known traces plus 32 big traces (exclusive, multi-page
    chains) and one trace past ``page_max_chain`` (its read takes the
-   ring-scan fallback); all four kernel wrappers must have launched;
+   ring-scan fallback); all four kernel wrappers must have launched, the
+   flat histogram once a step;
 3. holds each kernel against its plain PyTorch twin, bitwise, on inputs
-   the paths gave it (recorded during the drives): the arena claim,
+   the paths gave it (recorded during the drives): the fused flat
+   histogram on the first step's seven sites, and each site alone; the
+   arena claim,
    write and the two together also on an in-batch bucket overflow, a
    power-of-two bucket count, no valid row and one bucket spanning
    several of the claim's blocks; the page gather also on hole pages.
@@ -29,6 +34,10 @@ nvcc per source, started together), then
 4. runs each layout's stream at capacity 2^14 (same widths) on the card
    and on the CPU (plain twins) and requires equal states (and, paged,
    equal planner snapshots).
+
+``--hist-variants`` also builds copies of the flat-histogram kernel with
+one design constant changed each and reads their device time on the
+first step's sites (the evidence for its constants).
 
 It fails on any phase failure and catches none. The line before the
 last is the kernels JSON; the last line is the device JSON. Without a
@@ -174,12 +183,12 @@ def device_ms(torch, fn, kernel, reps: int = 10):
 
 class Recorder:
     """Wraps the kernels module's wrappers to keep a copy of their inputs
-    on a path (the first step's seven flat-histogram call sites, arena
-    claim and arena write; the page gather call with the most pages, by
-    reference to the state's columns); the kernel then runs as usual and
-    counts its launch."""
+    on a path (the first step's fused flat-histogram call with its seven
+    sites, arena claim and arena write; the page gather call with the
+    most pages, by reference to the state's columns); the kernel then
+    runs as usual and counts its launch."""
 
-    NAMES = ("histogram_update", "arena_claim", "arena_write",
+    NAMES = ("histogram_update_many", "arena_claim", "arena_write",
              "paged_page_gather")
 
     def __init__(self, K, record=("hist", "arena")):
@@ -188,11 +197,13 @@ class Recorder:
         self._orig = {n: getattr(K, n) for n in self.NAMES}
         orig = self._orig
 
-        def hist(counts, idx, weights):
-            if "hist" in record and len(self.hist) < 7:
-                self.hist.append((counts.clone(), idx.clone(),
-                                  weights.clone()))
-            return orig["histogram_update"](counts, idx, weights)
+        def hist(sites):
+            sites = tuple(sites)
+            if "hist" in record and not self.hist:
+                self.hist = [(c.clone(), i.clone(),
+                              None if w is None else w.clone())
+                             for c, i, w in sites]
+            return orig["histogram_update_many"](sites)
 
         def claim(bucket, valid, n_buckets):
             if "arena" in record and self.claim is None:
@@ -501,10 +512,17 @@ def read_split(store, ids, reps: int = 3):
     return out
 
 
-def check_launches(launches, names, device, path):
+def check_launches(launches, names, device, path, steps):
+    """Every kernel of ``names`` launched on the path, and the flat
+    histogram exactly once an ingest step (its seven sites fused)."""
+    if device.type != "cuda":
+        return
     for name in names:
-        if launches[name] <= 0 and device.type == "cuda":
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
+    if launches["flat_histogram"] != steps:
+        fail(f"flat_histogram launched {launches['flat_histogram']} times "
+             f"in {steps} ingest steps on the {path} path, not once a step")
 
 
 def path_result(torch, store, scale, written, step_s, stream_s, lat,
@@ -532,6 +550,7 @@ def path_result(torch, store, scale, written, step_s, stream_s, lat,
         "max_memory_allocated_bytes": mem,
         **peaks,
         "kernel_launches": launches,
+        "ingest_steps": store.counter_block()["batches"],
     }
 
 
@@ -564,7 +583,7 @@ def main_path(torch, K, dev, scale, device):
         f"{stream_s:.3f} s; ring laps {cb['ring_laps']}; launches "
         f"{launches}")
     check_launches(launches, ("flat_histogram", "arena_claim",
-                              "arena_write"), device, "ring")
+                              "arena_write"), device, "ring", cb["batches"])
     if cb["ring_laps"] < 1:
         fail("the span ring did not wrap")
     lat = known_answer_reads(store, traces, [], None, names, gen)
@@ -624,7 +643,8 @@ def paged_path(torch, K, dev, scale, device):
     log(f"paged path: {written} spans streamed in {len(step_s)} launches, "
         f"{stream_s:.3f} s; {counters['page_reclaims_total']:.0f} page "
         f"reclaims; launches {launches}")
-    check_launches(launches, K.KERNELS, device, "paged")
+    check_launches(launches, K.KERNELS, device, "paged",
+                   store.counter_block()["batches"])
     if counters["page_reclaims_total"] <= 0 or reclaims_stream <= 0:
         fail("the paged stream reclaimed no page")
     result = path_result(torch, store, scale, written, step_s, stream_s,
@@ -652,40 +672,160 @@ def paged_path(torch, K, dev, scale, device):
 
 
 def hist_phase(torch, K, rec):
+    """K1 on the ring path's first step: the fused call of its seven
+    sites against the twin, bitwise, and each site alone through the
+    one-site call, bitwise. Then the fused call's call ms, host us,
+    device ms, twin ms, the seven-call ``index_put_`` yardstick and the
+    bound; and each site's numbers through the one-site call, as PRs 1-3
+    reported them."""
     if len(rec.hist) != 7:
-        fail(f"recorded {len(rec.hist)} flat_histogram call sites, not 7")
-    rows = []
-    for i, (counts, idx, w) in enumerate(rec.hist):
-        want = K.histogram_update_plain(counts.clone(), idx, w)
-        got = K.histogram_update(counts.clone(), idx, w)
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0:
-            fail(f"flat_histogram call {i} disagrees (max err {err})")
-        scratch = counts.clone()
-        ms = time_ms(torch, lambda: K.histogram_update(scratch, idx, w))
-        plain = time_ms(torch, lambda: K.histogram_update_plain(
-            scratch, idx, w))
-        flat = scratch.view(-1)
-        i64 = idx.long()
+        fail(f"recorded {len(rec.hist)} flat_histogram sites, not 7")
 
-        def library():
-            ok = (i64 >= 0) & (i64 < flat.shape[0])
-            flat.index_put_((i64[ok],), w[ok], accumulate=True)
+    def fresh():
+        return [(c.clone(), i, w) for c, i, w in rec.hist]
 
-        lib = time_ms(torch, library)
-        dev_ms = device_ms(torch, lambda: K.histogram_update(scratch, idx,
-                                                             w), "hist_")
+    want = fresh()
+    K.histogram_update_many_plain(want)
+    got = fresh()
+    K.histogram_update_many(got)
+    err = max(_disagree(g[0], w[0]) for g, w in zip(got, want))
+    if err:
+        fail(f"fused flat_histogram disagrees (max err {err})")
+    del got
+    scratch = fresh()
+    lib_sites = []
+    touched = []
+    for counts, idx, _ in scratch:
+        flat, i64 = counts.view(-1), idx.long()
         ok = (i64 >= 0) & (i64 < flat.shape[0])
-        touched = int(torch.unique(i64[ok]).numel())
-        nbytes = idx.numel() * 8 + touched * 8
-        rows.append({"site": i, "cells": counts.numel(),
-                     "rows": idx.numel(), "touched": touched, "ms": ms,
-                     "device_ms": dev_ms,
-                     "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
-                     "max_abs_err": err})
-    for r in rows:
+        lib_sites.append((flat, i64, torch.ones_like(idx)))
+        touched.append(int(torch.unique(i64[ok]).numel()))
+
+    def library():
+        for flat, i64, ones in lib_sites:
+            ok = (i64 >= 0) & (i64 < flat.shape[0])
+            flat.index_put_((i64[ok],), ones[ok], accumulate=True)
+
+    def host_us(fn, reps=50):
+        sync(torch, scratch[0][0].device)
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t) * 1e6 / reps
+        sync(torch, scratch[0][0].device)
+        return host
+
+    def bound(rows, cells):
+        # 4 B of index a row (no weights), each touched cell read and
+        # written once
+        return (rows * 4 + cells * 8) / H100_BYTES_PER_S * 1e3
+
+    fused = lambda: K.histogram_update_many(scratch)  # noqa: E731
+    rows = [i.numel() for _, i, _ in scratch]
+    row = {"sites": len(scratch), "rows": sum(rows),
+           "cells": sum(c.numel() for c, _, _ in scratch),
+           "touched": sum(touched), "ms": time_ms(torch, fused),
+           "host_us": host_us(fused),
+           "device_ms": device_ms(torch, fused, "hist_multi"),
+           "plain_ms": time_ms(torch, lambda: K.histogram_update_many_plain(
+               scratch)),
+           "library_ms": time_ms(torch, library),
+           "library": "seven index_put_(accumulate=True) calls in a row",
+           "bound_ms": bound(sum(rows), sum(touched)), "bound_by": "bytes",
+           "max_abs_err": 0}
+    site_rows = []
+    for k, (counts, idx, _) in enumerate(rec.hist):
+        one = K.histogram_update(counts.clone(), idx)
+        err = _disagree(one, want[k][0])
+        if err:
+            fail(f"flat_histogram site {k} alone disagrees (max err {err})")
+        c = scratch[k][0]
+        flat, i64, ones = lib_sites[k]
+        call = lambda: K.histogram_update(c, idx)  # noqa: E731
+
+        def lib_one():
+            ok = (i64 >= 0) & (i64 < flat.shape[0])
+            flat.index_put_((i64[ok],), ones[ok], accumulate=True)
+
+        site_rows.append({
+            "site": k, "cells": counts.numel(), "rows": idx.numel(),
+            "touched": touched[k], "ms": time_ms(torch, call),
+            "device_ms": device_ms(torch, call, "hist_multi"),
+            "plain_ms": time_ms(torch, lambda: K.histogram_update_plain(
+                c, idx)),
+            "library_ms": time_ms(torch, lib_one),
+            "bound_ms": bound(idx.numel(), touched[k]), "max_abs_err": err})
+    for r in site_rows:
         log("flat_histogram site: " + json.dumps(r))
+    if row["device_ms"] != "not measured":
+        row["sites_ms_sum"] = sum(r["ms"] for r in site_rows)
+        row["sites_device_ms_sum"] = sum(r["device_ms"] for r in site_rows)
+    log("flat_histogram fused: " + json.dumps(row))
+    return row, site_rows
+
+
+# ``--hist-variants``: copies of csrc/flat_histogram.cu with one design
+# constant changed each.
+HIST_VARIANTS = {
+    "one atomic a row (no warp aggregation)": {"kAggregate": "false"},
+    "privatise at >= 8 x m rows a block": {"kPrivRatio": "8"},
+    "privatise at >= 16 x m rows a block": {"kPrivRatio": "16"},
+    "no privatisation": {"kPrivCells": "0"},
+    "2 rows in flight a thread": {"kUnroll": "2"},
+    "8 rows in flight a thread": {"kUnroll": "8"},
+    "2 blocks an SM": {"kBlocksPerSm": "2"},
+    "8 blocks an SM": {"kBlocksPerSm": "8"},
+    "256 threads a block, 8 blocks an SM": {"kThreads": "256",
+                                            "kBlocksPerSm": "8"},
+}
+
+
+def hist_variants(torch, K, rec):
+    """The design check of K1: builds each of ``HIST_VARIANTS`` (and the
+    source as it is) into a library of its own, holds each fused call on
+    the first step's seven sites bitwise against the twin, and reads its
+    cold device ms."""
+    import ctypes
+    import re
+
+    src = (K.CSRC / "flat_histogram.cu").read_text()
+    out = K.BUILD_DIR / "hist_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for label, consts in {"as built": {}, **HIST_VARIANTS}.items():
+        text = src
+        for name, value in consts.items():
+            text, n = re.subn(rf"(constexpr [\w ]+ {name} = )[^;]+;",
+                              rf"\g<1>{value};", text)
+            if n != 1:
+                fail(f"hist variant {label}: no constant {name}")
+        cu = out / f"v{len(procs)}.cu"
+        cu.write_text(text)
+        procs[label] = (cu.with_suffix(".so"), subprocess.Popen(
+            K.nvcc_command(cu, cu.with_suffix(".so")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    want = [(c.clone(), i, w) for c, i, w in rec.hist]
+    K.histogram_update_many_plain(want)
+    rows = {}
+    for label, (so, proc) in procs.items():
+        build_log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"hist variant {label} did not build:\n{build_log}")
+        fn = ctypes.CDLL(str(so)).zt_flat_histogram_multi
+        fn.argtypes = K._ARGTYPES["zt_flat_histogram_multi"]
+        got = [(c.clone(), i, w) for c, i, w in rec.hist]
+        stream = K._stream(got[0][0].device)
+
+        def call(sites):
+            if fn(K.hist_table(sites)[0], len(sites), stream):
+                fail(f"hist variant {label} did not launch")
+
+        call(got)
+        if max(_disagree(g[0], w[0]) for g, w in zip(got, want)):
+            fail(f"hist variant {label} disagrees")
+        rows[label] = device_ms(torch, lambda: call(got), "hist_multi",
+                                reps=20)
+        log(f"flat_histogram variant {label}: device_ms {rows[label]}")
     return rows
 
 
@@ -937,6 +1077,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny CPU run of the same flow; prints no result")
+    ap.add_argument("--hist-variants", action="store_true",
+                    help="also build and time design variants of the flat "
+                         "histogram kernel on the first step's sites")
     ap.add_argument("--profile", type=int, default=3, metavar="N",
                     help="profile N more launches of the ring stream "
                          "(torch.profiler): kernel time and idle share; "
@@ -982,7 +1125,9 @@ def main() -> int:
 
     rec, result = phase("ring_path", main_path, torch, K, dev, scale,
                         device)
-    hist_rows = phase("flat_histogram", hist_phase, torch, K, rec)
+    hist, hist_rows = phase("flat_histogram", hist_phase, torch, K, rec)
+    if args.hist_variants and not args.rehearse:
+        phase("flat_histogram_variants", hist_variants, torch, K, rec)
     arena = phase("arena_claim_scatter", arena_phase, torch, K, rec)
     del rec
     prec, presult = phase("paged_path", paged_path, torch, K, dev, scale,
@@ -1002,12 +1147,17 @@ def main() -> int:
          "launches": result["kernel_launches"]["flat_histogram"],
          "launches_by_path": {p: v["flat_histogram"]
                               for p, v in by_path.items()},
-         "max_abs_err": max(r["max_abs_err"] for r in hist_rows),
-         "ms": big["ms"],
-         "device_ms": big["device_ms"],
-         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-         "bound_by": "bytes", "library_ms": big["library_ms"],
-         "shape": {"cells": big["cells"], "rows": big["rows"]}},
+         "steps_by_path": {"ring": result["ingest_steps"],
+                           "paged": presult["ingest_steps"]},
+         "max_abs_err": max([hist["max_abs_err"]]
+                            + [r["max_abs_err"] for r in hist_rows]),
+         **{k: hist[k] for k in (
+             "ms", "host_us", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library")},
+         "shape": {k: hist[k] for k in ("sites", "rows", "cells")},
+         "largest_site": {k: big[k] for k in (
+             "cells", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
+             "library_ms")}},
         {"name": "arena_claim_scatter", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/arena_claim_scatter.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:247",

@@ -61,6 +61,91 @@ def test_cuda_histogram_matches_twin(cuda, m):
     np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
 
 
+def _hist_site(seed, m, n, weighted=False, hot=False, cms=False):
+    """One site as numpy: (counts, idx, weights or None). ``cms``: n rows
+    into a [4, m // 4] count-min table, flattened as the step does;
+    ``hot``: every row hits cell 3."""
+    rng = np.random.default_rng(seed)
+    counts = (np.arange(m) % 7).astype(np.int32)
+    if cms:
+        w4 = m // 4
+        rows = rng.integers(0, w4, (4, n // 4)) + (np.arange(4) * w4)[:, None]
+        rows[:, rng.random(n // 4) < 0.1] = -1
+        idx = rows.reshape(-1).astype(np.int32)
+    else:
+        idx = rng.integers(-1, m, n).astype(np.int32)
+        idx[::97] = m + 5  # past the end: dropped
+    if hot:
+        idx[:] = 3
+    w = rng.integers(1, 4, n).astype(np.int32) if weighted else None
+    return counts, idx, w
+
+
+# Fused calls on the card: each a list of _hist_site arguments.
+_MANY = {
+    "privatised 1000 cells": [dict(m=1000, n=131_072)],
+    "hot cell": [dict(m=1000, n=131_072, hot=True),
+                 dict(m=1 << 20, n=200_000, hot=True),
+                 dict(m=1 << 20, n=100_000, hot=True, weighted=True)],
+    "count-min": [dict(m=4 * 65_536, n=524_288, cms=True)],
+    "eight sites": [dict(m=1000 * 2048, n=131_072),
+                    dict(m=1000, n=131_072, weighted=True),
+                    dict(m=1000, n=262_144),
+                    dict(m=1000 * 2048, n=262_144, weighted=True),
+                    dict(m=1000 * 4096, n=262_144, hot=True),
+                    dict(m=1000 * 1024, n=0),
+                    dict(m=4 * 65_536, n=524_288, cms=True),
+                    dict(m=4096, n=50_001)],
+    "empty site": [dict(m=1000, n=0), dict(m=1 << 20, n=1000)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_MANY))
+def test_cuda_histogram_many_matches_twin(cuda, case):
+    t = torch.from_numpy
+    cpu = [(t(c), t(i), None if w is None else t(w))
+           for c, i, w in (_hist_site(k, **a)
+                           for k, a in enumerate(_MANY[case]))]
+    want = [(c.clone(), i, w) for c, i, w in cpu]
+    K.histogram_update_many_plain(want)
+    got = [(c.to(cuda), i.to(cuda), None if w is None else w.to(cuda))
+           for c, i, w in cpu]
+    before = K.LAUNCHES["flat_histogram"]
+    K.histogram_update_many(got)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flat_histogram"] == before + 1
+    for (w_c, _, _), (g_c, _, _) in zip(want, got):
+        np.testing.assert_array_equal(w_c.numpy(), g_c.cpu().numpy())
+    # Each site alone, through the one-site call: one launch each.
+    for (c, i, w), (w_c, _, _) in zip(cpu, want):
+        before = K.LAUNCHES["flat_histogram"]
+        one = K.histogram_update(c.to(cuda), i.to(cuda),
+                                 None if w is None else w.to(cuda))
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["flat_histogram"] == before + int(i.numel() > 0)
+        np.testing.assert_array_equal(w_c.numpy(), one.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_histogram_many_raises_rather_than_falls_back(cuda):
+    c = torch.zeros(16, dtype=torch.int32, device=cuda)
+    i = torch.zeros(4, dtype=torch.int32, device=cuda)
+    before = K.LAUNCHES["flat_histogram"]
+    with pytest.raises(TypeError):
+        K.histogram_update_many([(c, i.long(), None)])
+    with pytest.raises(TypeError):
+        K.histogram_update_many([(c.long(), i, None)])
+    with pytest.raises(ValueError, match="device"):
+        K.histogram_update_many([(c, i, None), (c.cpu(), i.cpu(), None)])
+    with pytest.raises(ValueError, match="device"):
+        K.histogram_update_many([(c, i.cpu(), None)])
+    with pytest.raises(ValueError, match="at most 8"):
+        K.histogram_update_many([(c, i, None)] * 9)
+    assert K.LAUNCHES["flat_histogram"] == before
+    assert int(c.sum()) == 0
+
+
 def _on(args, device):
     return tuple(a.to(device) if torch.is_tensor(a) else a for a in args)
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from zipkin_tpu.ops import pallas_kernels as pk  # noqa: E402
 from zipkin_tpu.store import device as dev  # noqa: E402
 from zipkin_tpu_torch.ops import kernels as K  # noqa: E402
+from zipkin_tpu_torch.store import device as tdev  # noqa: E402
 
 
 def _hist_inputs(seed, n, m):
@@ -49,6 +50,101 @@ def test_histogram_twin_matches_pallas_and_xla(n, m):
         K.histogram_update(torch.from_numpy(counts0.copy()),
                            torch.from_numpy(idx),
                            torch.from_numpy(w)).numpy())
+
+
+# Sites of one fused call: (kind, cells, rows, weighted). ``flat`` rows
+# hold idx in [-1, m); ``past`` also rows at idx >= m (the XLA
+# formulation drops them; the Pallas kernel has no such rows); ``cms``
+# is a [4, 256] count-min table fed as the step feeds it.
+_SITES = [("flat", 1024, 3000, True), ("flat", 512, 0, False),
+          ("cms", 4 * 256, 300, False), ("past", 640, 777, False),
+          ("flat", 128, 2000, False), ("past", 896, 500, True),
+          ("flat", 3 * 128, 1, True), ("flat", 1024, 1500, False)]
+
+
+def _site(seed, kind, m, n, weighted):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 9, m).astype(np.int32)
+    w = rng.integers(1, 4, n).astype(np.int32) if weighted else None
+    if kind == "cms":
+        rows = rng.integers(0, m // 4, (4, n)).astype(np.int32)
+        rows[:, rng.random(n) < 0.2] = -1  # masked spans
+        return counts, rows, w
+    idx = rng.integers(-1, m, n).astype(np.int32)
+    if kind == "past":
+        idx[::7] = m + rng.integers(0, 50)
+    return counts, idx, w
+
+
+def _reference(kind, counts, idx, w):
+    """The JAX package's result for one site: the Pallas kernel
+    (interpret mode) where its contract holds, and the XLA formulation."""
+    if kind == "cms":
+        want = np.asarray(pk.cms_update(
+            jnp.asarray(counts.reshape(4, -1)), jnp.asarray(idx),
+            tile=256)).reshape(-1)
+        flat = np.where(idx >= 0, idx + (np.arange(4) * (counts.size // 4))
+                        [:, None], -1).reshape(-1).astype(np.int32)
+        xla = np.asarray(pk.scatter_histogram_xla(jnp.asarray(counts),
+                                                  jnp.asarray(flat)))
+        np.testing.assert_array_equal(want, xla)
+        return want, flat
+    jw = None if w is None else jnp.asarray(w)
+    want = np.asarray(pk.scatter_histogram_xla(
+        jnp.asarray(counts), jnp.asarray(idx), jw))
+    if kind == "flat":
+        np.testing.assert_array_equal(want, np.asarray(pk.histogram_update(
+            jnp.asarray(counts), jnp.asarray(idx), jw, tile=256)))
+    return want, idx
+
+
+@pytest.mark.parametrize("n_sites", [1, 2, 8])
+def test_histogram_many_twin_matches_pallas_and_xla(n_sites):
+    specs = _SITES[:n_sites] if n_sites != 1 else [_SITES[2]]
+    cases = [_site(40 + k, *spec) for k, spec in enumerate(specs)]
+    sites, wants = [], []
+    for (kind, *_), (counts, idx, w) in zip(specs, cases):
+        want, flat = _reference(kind, counts, idx, w)
+        wants.append(want)
+        sites.append((torch.from_numpy(counts.copy()), torch.from_numpy(flat),
+                      None if w is None else torch.from_numpy(w)))
+    before = dict(K.LAUNCHES)
+    plain = [(c.clone(), i, w) for c, i, w in sites]
+    K.histogram_update_many_plain(plain)
+    K.histogram_update_many(sites)  # CPU tensors: the twin
+    for want, (c, _, _), (p, _, _) in zip(wants, sites, plain):
+        np.testing.assert_array_equal(want, c.numpy())
+        np.testing.assert_array_equal(want, p.numpy())
+    assert K.LAUNCHES == before  # twins never count
+
+
+def test_store_plain_scatter_matches_xla():
+    # The store's own plain scatter (weight 1, no weights argument).
+    for k, (kind, m, n, _) in enumerate(_SITES):
+        counts, idx, _ = _site(70 + k, kind, m, n, False)
+        want, flat = _reference(kind, counts, idx, None)
+        got = tdev.scatter_histogram(torch.from_numpy(counts.copy()),
+                                     torch.from_numpy(flat))
+        np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_histogram_many_checks_inputs():
+    c = torch.zeros(16, dtype=torch.int32)
+    i = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 8"):
+        K.histogram_update_many([(c, i, None)] * 9)
+    with pytest.raises(TypeError):
+        K.histogram_update_many([(c, i.long(), None)])
+    with pytest.raises(TypeError):
+        K.histogram_update_many([(c, i, torch.ones(4))])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.histogram_update_many([(c, torch.zeros(8, dtype=torch.int32)[::2],
+                                  None)])
+    with pytest.raises(ValueError, match="device"):
+        K.histogram_update_many([(c, i, None), (c, i.to("meta"), None)])
+    with pytest.raises(ValueError, match="shape"):
+        K.histogram_update_many([(c, i, torch.ones(3, dtype=torch.int32))])
+    assert K.LAUNCHES["flat_histogram"] == 0
 
 
 def _arena_case(seed, n, n_b=53, depth=8):

@@ -1,7 +1,9 @@
 """The store's hand-written CUDA kernels, with their plain twins.
 
-- ``histogram_update`` -> ``csrc/flat_histogram.cu``: replaces the TPU
-  kernel ``zipkin_tpu/ops/pallas_kernels.py:flat_histogram``.
+- ``histogram_update_many`` -> ``csrc/flat_histogram.cu``: replaces the
+  TPU kernel ``zipkin_tpu/ops/pallas_kernels.py:flat_histogram``; one
+  launch adds up to eight flat histograms (the ingest step's seven
+  sites); ``histogram_update`` is its one-site call.
 - ``arena_claim`` + ``arena_write`` -> ``csrc/arena_claim_scatter.cu``:
   together they replace ``zipkin_tpu/ops/pallas_kernels.py:
   arena_claim_scatter`` (``arena_claim_scatter`` here calls the two). The
@@ -53,8 +55,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "zt_flat_histogram": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-                          _P],
+    "zt_flat_histogram_multi": [ctypes.POINTER(ctypes.c_longlong),
+                                ctypes.c_int, _P],
     "zt_arena_claim": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
                        _P],
     "zt_arena_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -94,6 +96,14 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
+def nvcc_command(src, out, nvcc=None) -> list:
+    """The nvcc command that builds ``src`` into the shared library
+    ``out`` (sm_90a, plain C interface, register report)."""
+    return [nvcc or _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas=-v", "-o", str(out), str(src)]
+
+
 def build_all(names=SOURCES) -> float:
     """Compile every stale kernel library, one nvcc per source, all
     started together. Returns the wall seconds spent. Raises with the
@@ -107,12 +117,9 @@ def build_all(names=SOURCES) -> float:
     procs = {}
     for name in todo:
         tmp = BUILD_DIR / f"lib{name}.so.tmp{os.getpid()}"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas=-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+            nvcc_command(CSRC / f"{name}.cu", tmp, nvcc),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
@@ -165,39 +172,99 @@ def _stream(dev: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1: flat histogram
+# K1: flat histogram, up to HIST_MAX_SITES sites a launch
 # ---------------------------------------------------------------------------
+
+HIST_MAX_SITES = 8
+_HIST_ROW = 5  # counts, m, idx, n, weights (0: weight 1)
+_HIST_TABLE = ctypes.c_longlong * (HIST_MAX_SITES * _HIST_ROW)
 
 
 def histogram_update_plain(counts: torch.Tensor, idx: torch.Tensor,
-                           weights: torch.Tensor) -> torch.Tensor:
-    """Plain twin: ``counts.view(-1)[idx] += weights`` for 0 <= idx < m,
-    in place (the function of pallas_kernels.scatter_histogram_xla)."""
+                           weights=None) -> torch.Tensor:
+    """Plain twin: ``counts.view(-1)[idx] += weights`` (ones where
+    ``weights`` is None) for 0 <= idx < m, in place (the function of
+    pallas_kernels.scatter_histogram_xla)."""
     flat = counts.view(-1)
     idx = idx.to(torch.int64)
     ok = (idx >= 0) & (idx < flat.shape[0])
-    flat.index_add_(0, idx[ok], weights.to(flat.dtype)[ok])
+    w = (torch.ones(idx.shape, dtype=flat.dtype, device=flat.device)
+         if weights is None else weights.to(flat.dtype))
+    flat.index_add_(0, idx[ok], w[ok])
     return counts
 
 
-def histogram_update(counts: torch.Tensor, idx: torch.Tensor,
-                     weights: torch.Tensor) -> torch.Tensor:
-    """counts (int32, any shape, contiguous) += the flat scatter of
-    ``weights`` at ``idx``; rows with idx < 0 or idx >= counts.numel()
-    are dropped. Updates ``counts`` in place (where the TPU kernel
-    returns a delta) and returns it."""
-    if counts.device.type == "cpu":
-        return histogram_update_plain(counts, idx, weights)
-    dev = counts.device
-    n = idx.shape[0]
-    _check(counts, "counts", torch.int32, dev)
-    _check(idx, "idx", torch.int32, dev, (n,))
-    _check(weights, "weights", torch.int32, dev, (n,))
-    rc = _lib("flat_histogram").zt_flat_histogram(
-        counts.data_ptr(), idx.data_ptr(), weights.data_ptr(), n,
-        counts.numel(), _stream(dev))
+def histogram_update_many_plain(sites) -> None:
+    """Plain twin of ``histogram_update_many``: each site in turn."""
+    for counts, idx, weights in sites:
+        histogram_update_plain(counts, idx, weights)
+
+
+def _check_sites(sites, dev) -> None:
+    """Raise unless every site is int32, contiguous, on ``dev``, with a
+    1-D idx and weights (where given) of its length. The common case
+    costs one boolean chain a site; the message is built on failure."""
+    if len(sites) > HIST_MAX_SITES:
+        raise ValueError(f"flat_histogram: {len(sites)} sites, at most "
+                         f"{HIST_MAX_SITES}")
+    i32 = torch.int32
+    for k, (counts, idx, weights) in enumerate(sites):
+        if (counts.dtype != i32 or idx.dtype != i32 or counts.device != dev
+                or idx.device != dev or not counts.is_contiguous()
+                or not idx.is_contiguous() or idx.dim() != 1
+                or (weights is not None and (
+                    weights.dtype != i32 or weights.device != dev
+                    or not weights.is_contiguous()
+                    or weights.shape != idx.shape))):
+            n = idx.shape[0] if idx.dim() else 0
+            _check(counts, f"sites[{k}].counts", i32, dev)
+            _check(idx, f"sites[{k}].idx", i32, dev, (n,))
+            _check(weights, f"sites[{k}].weights", i32, dev, (n,))
+
+
+def hist_table(sites):
+    """The foreign-call table of checked sites (``_HIST_ROW`` values a
+    site) and their total rows."""
+    table = _HIST_TABLE()
+    rows = 0
+    for k, (counts, idx, weights) in enumerate(sites):
+        n = idx.shape[0]
+        rows += n
+        table[k * _HIST_ROW:(k + 1) * _HIST_ROW] = (
+            counts.data_ptr(), counts.numel(), idx.data_ptr(), n,
+            0 if weights is None else weights.data_ptr())
+    return table, rows
+
+
+def histogram_update_many(sites) -> None:
+    """Up to ``HIST_MAX_SITES`` flat histograms in ONE kernel launch:
+    for each ``(counts, idx, weights)`` site, ``counts`` (int32, any
+    shape, contiguous) += the flat scatter of ``weights`` (int32 [n], or
+    None for ones) at ``idx`` (int32 [n]); rows with idx < 0 or idx >=
+    counts.numel() are dropped. In place. Every tensor lies on one
+    device; CPU tensors run the twin."""
+    sites = tuple(sites)
+    if not sites:
+        return
+    dev = sites[0][0].device
+    _check_sites(sites, dev)
+    if dev.type == "cpu":
+        return histogram_update_many_plain(sites)
+    table, rows = hist_table(sites)
+    if rows == 0:
+        return
+    rc = _lib("flat_histogram").zt_flat_histogram_multi(
+        table, len(sites), _stream(dev))
     _raise_on(rc, "flat_histogram")
     LAUNCHES["flat_histogram"] += 1
+
+
+def histogram_update(counts: torch.Tensor, idx: torch.Tensor,
+                     weights=None) -> torch.Tensor:
+    """One site of ``histogram_update_many`` (one launch on the card):
+    counts += the flat scatter of ``weights`` (None: ones) at ``idx``,
+    in place; returns ``counts``."""
+    histogram_update_many(((counts, idx, weights),))
     return counts
 
 

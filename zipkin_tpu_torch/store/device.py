@@ -14,11 +14,11 @@ own device. Where the JAX functions donate the state buffer
 (``ingest_step``, ``ingest_steps``, ``dep_sweep``, ``dep_close_bucket``)
 the port updates the state IN PLACE and returns the same object.
 
-With ``StoreConfig.use_pallas`` the step routes its seven scatter-adds
-through the flat-histogram kernel, takes the index rows' FIFO ranks and
-bucket counts from the arena claim kernel (in place of either rank path)
-and the arena entry write from the arena write kernel, and the paged
-trace read gathers its pages through
+With ``StoreConfig.use_pallas`` the step makes its seven scatter-adds
+in one launch of the flat-histogram kernel, takes the index rows' FIFO
+ranks and bucket counts from the arena claim kernel (in place of either
+rank path) and the arena entry write from the arena write kernel, and
+the paged trace read gathers its pages through
 the page-gather kernel (``ops/kernels.py``); on CPU tensors those
 wrappers run their plain twins. Both span layouts are ported:
 ``layout="ring"`` and ``layout="paged"`` (slots and gids planned by the
@@ -436,14 +436,17 @@ def _coarse_ts32(ts, ok, shift: int):
     return torch.where(in_dom, v, torch.zeros_like(v)), ok & (t >= lim)
 
 
-def _scatter_add(counts, idx, weights, use_pallas: bool):
-    """``counts.view(-1)[idx] += weights`` with idx < 0 dropped, in place:
-    the flat-histogram kernel when ``use_pallas`` (every call site, no
-    lane gate), the plain index_add otherwise."""
-    if use_pallas:
-        return K.histogram_update(counts, idx.to(torch.int32).contiguous(),
-                                  weights.to(torch.int32).contiguous())
-    return K.histogram_update_plain(counts, idx, weights)
+def scatter_histogram(counts, idx):
+    """``counts.view(-1)[idx] += 1`` for every row with idx in [0,
+    counts.numel()), in place: the plain scatter-add (the counterpart of
+    the reference's ``scatter_histogram_xla`` with its default
+    weights)."""
+    flat = counts.view(-1)
+    idx = idx.to(torch.int64)
+    sel = idx[(idx >= 0) & (idx < flat.shape[0])]
+    flat.index_add_(0, sel, torch.ones(sel.shape, dtype=flat.dtype,
+                                       device=flat.device))
+    return counts
 
 
 def _ones(n: int, dev) -> torch.Tensor:
@@ -1194,42 +1197,39 @@ def ingest_step(state: StoreState, b: DeviceBatch) -> StoreState:
             use_kernel=c.use_pallas)
 
     # -- latency histogram, counters, presence ----------------------------
-    up = c.use_pallas
+    # Seven scatter-adds of weight 1 into seven distinct count arrays,
+    # made after the count-min site in one call (one kernel launch with
+    # ``use_pallas``).
     svc_ok = (mask & (b.service_id >= 0) & (b.service_id < S)
               & (b.duration >= 0))
     bidx = Q.bucket_index(b.duration, c.quantile_buckets, c.gamma)
     g = torch.clamp(b.service_id, 0, S - 1)
-    ones_p = _ones(P, dev)
-    ones_a = _ones(PA, dev)
     neg_p = torch.full((P,), -1, dtype=torch.int32, device=dev)
     neg_a = torch.full((PA,), -1, dtype=torch.int32, device=dev)
-    _scatter_add(lv["svc_hist"], torch.where(
-        svc_ok, g * c.quantile_buckets + bidx, neg_p), ones_p, up)
+    hist = [(lv["svc_hist"], torch.where(
+        svc_ok, g * c.quantile_buckets + bidx, neg_p))]
     svc_cnt_ok = mask & (b.service_id >= 0) & (b.service_id < S)
-    _scatter_add(lv["svc_span_counts"],
-                 torch.where(svc_cnt_ok, b.service_id, neg_p), ones_p, up)
+    hist.append((lv["svc_span_counts"],
+                 torch.where(svc_cnt_ok, b.service_id, neg_p)))
     a_svc = b.ann_service_id
     a_svc_ok = mask_a & (a_svc >= 0) & (a_svc < S)
-    _scatter_add(lv["ann_svc_counts"], torch.where(a_svc_ok, a_svc, neg_a),
-                 ones_a, up)
+    hist.append((lv["ann_svc_counts"], torch.where(a_svc_ok, a_svc, neg_a)))
     a_si = b.ann_span_idx.to(torch.int64)
     ann_name = b.name_id[a_si]
     np_ok = (a_svc_ok & b.indexable[a_si] & (b.name_lc_id[a_si] >= 0)
              & (ann_name >= 0) & (ann_name < c.max_span_names))
-    _scatter_add(lv["name_presence"], torch.where(
-        np_ok, a_svc * c.max_span_names + ann_name, neg_a), ones_a, up)
+    hist.append((lv["name_presence"], torch.where(
+        np_ok, a_svc * c.max_span_names + ann_name, neg_a)))
     av_ok = (a_svc_ok & (b.ann_value_id >= FIRST_USER_ANNOTATION_ID)
              & (b.ann_value_id < c.max_annotation_values))
-    _scatter_add(lv["ann_value_counts"], torch.where(
-        av_ok, a_svc * c.max_annotation_values + b.ann_value_id, neg_a),
-        ones_a, up)
+    hist.append((lv["ann_value_counts"], torch.where(
+        av_ok, a_svc * c.max_annotation_values + b.ann_value_id, neg_a)))
     bk_svc = b.bann_service_id
     bk_ok = (mask_b & (bk_svc >= 0) & (bk_svc < S) & (b.bann_key_id >= 0)
              & (b.bann_key_id < c.max_binary_keys))
-    _scatter_add(lv["bann_key_counts"], torch.where(
+    hist.append((lv["bann_key_counts"], torch.where(
         bk_ok, bk_svc * c.max_binary_keys + b.bann_key_id,
-        torch.full((PB,), -1, dtype=torch.int32, device=dev)),
-        _ones(PB, dev), up)
+        torch.full((PB,), -1, dtype=torch.int32, device=dev))))
 
     # -- probabilistic state -------------------------------------------
     t_hi, t_lo = dev_split64(b.trace_id)
@@ -1238,8 +1238,14 @@ def ingest_step(state: StoreState, b: DeviceBatch) -> StoreState:
     cms_flat = cms_idx + (_arange(c.cms_depth, dev) * c.cms_width)[:, None]
     cms_flat = torch.where(mask[None, :], cms_flat,
                            torch.full_like(cms_flat, -1)).reshape(-1)
-    _scatter_add(lv["cms_trace_spans"], cms_flat,
-                 _ones(c.cms_depth * P, dev), up)
+    hist.append((lv["cms_trace_spans"], cms_flat))
+    if c.use_pallas:
+        K.histogram_update_many([
+            (counts, idx.to(torch.int32).contiguous(), None)
+            for counts, idx in hist])
+    else:
+        for counts, idx in hist:
+            scatter_histogram(counts, idx)
 
     # -- time range + counters -----------------------------------------
     firsts = torch.where(mask & (b.ts_first >= 0), b.ts_first,
@@ -1780,9 +1786,8 @@ def svc_scan_catalog(state: StoreState, svc_id: int):
 
     def hadd(n, idx, ok):
         out = torch.zeros(n, dtype=torch.int32, device=dev)
-        return K.histogram_update_plain(
-            out, torch.where(ok, idx, torch.full_like(idx, -1)),
-            torch.ones_like(idx, dtype=torch.int32))
+        return scatter_histogram(
+            out, torch.where(ok, idx, torch.full_like(idx, -1)))
 
     m_sp = ((state.row_gid >= 0) & (state.service_id == svc_id)
             & (state.duration >= 0))
@@ -1814,9 +1819,8 @@ def overflow_service_presence(state: StoreState, n_over: int):
     for gid, svc in ((state.ann_gid, state.ann_service_id),
                      (state.bann_gid, state.bann_service_id)):
         ok = (gid >= 0) & (svc >= base)
-        K.histogram_update_plain(
-            pres, torch.where(ok, svc - base, torch.full_like(svc, -1)),
-            torch.ones_like(svc))
+        scatter_histogram(
+            pres, torch.where(ok, svc - base, torch.full_like(svc, -1)))
     return pres > 0
 
 
