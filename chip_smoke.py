@@ -31,9 +31,24 @@ nvcc per source, started together), then
    power-of-two bucket count, no valid row and one bucket spanning
    several of the claim's blocks; the page gather also on hole pages.
    It times call, kernel alone, twin and a one-call PyTorch yardstick;
-4. runs each layout's stream at capacity 2^14 (same widths) on the card
-   and on the CPU (plain twins) and requires equal states (and, paged,
-   equal planner snapshots).
+4. drives the daemon's default store (the same configuration with the
+   windowed arena on, 60 s x 64 buckets): 46 launches two buckets apart
+   (the slot ring laps), then one late launch whose rows lose the epoch
+   war; the flat histogram must launch once a step with eight sites
+   (``win_counts`` the eighth), the host sketch mirror must equal the
+   device leaves bitwise, and ten services' live-cell span and error
+   counts must equal a count kept on the host from the generated
+   batches; it times the three windowed reads and the mirror's host
+   share of a launch, and holds the eight-site call (and the eighth
+   site alone) against the twin;
+5. drives the daemon's ``--pipeline-depth 4`` write path at full width
+   with the window on: the same ``apply`` calls into a serial store and
+   a pipelined one must give equal states and mirrors; it records both
+   rates and the stage sketches;
+6. runs each layout's stream at capacity 2^14 (same widths, window on)
+   on the card and on the CPU (plain twins) and requires equal states
+   and mirrors (and, paged, equal planner snapshots), then the same
+   spans pipelined on the card against serial on the CPU.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -108,8 +123,10 @@ class Scale:
         if rehearse:
             self.cap_log2, self.services, self.names = 10, 40, 64
             self.batch_traces, self.stream_spans = 64, 4 * (1 << 10)
-            self.known, self.small_log2, self.small_batches = 60, 10, 20
+            self.known, self.small_log2, self.small_batches = 60, 10, 24
             self.small_traces = 16
+            self.window_launches, self.pipe_applies = 34, 4
+            self.pipe_traces = 64
             # Paged: 32 pages (a smaller pool cannot hold the known set),
             # a chain bound of 3 pages so a 400-span trace overflows it.
             self.paged_cap_log2, self.paged_launches = 12, 20
@@ -121,6 +138,10 @@ class Scale:
             self.stream_spans = (5 * (1 << 22)) // 4
             self.known, self.small_log2, self.small_batches = 2000, 14, 24
             self.small_traces = 512
+            # 46 launches two buckets apart: 92 buckets > 64 slots.
+            self.window_launches = 46
+            # 12 apply calls of 28,672 spans (the first untimed).
+            self.pipe_applies, self.pipe_traces = 12, 4096
             # 39 launches = 4,472,832 spans > 2^22: the pool runs out.
             self.paged_cap_log2, self.paged_launches = 22, 39
             self.page_max_chain, self.n_big = 64, 32
@@ -267,15 +288,16 @@ def rename_services(spans, names, span_names):
     return out
 
 
-def profile_steps(torch, store, gen, scale):
+def profile_steps(torch, store, gen, scale, batch_of=None, label="ring"):
     """torch.profiler over a few more launches of the stream: device
     time by kernel name and the card's idle share over the window
-    (1 - union of kernel intervals / wall time)."""
+    (1 - union of kernel intervals / wall time). ``batch_of(i)`` makes
+    the ``i``-th profiled batch (default: the generator's next)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batches = [gen.next_batch(scale.batch_traces)
-               for _ in range(scale.profile_steps)]
+    batches = [gen.next_batch(scale.batch_traces) if batch_of is None
+               else batch_of(i) for i in range(scale.profile_steps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -308,21 +330,27 @@ def profile_steps(torch, store, gen, scale):
            "device_busy_ms": busy / 1e3,
            "idle_share": max(0.0, 1.0 - busy / wall_us),
            "top_kernels_ms": [(n[:80], t / 1e3) for n, t in top]}
-    log("profile: " + json.dumps(out))
+    log(f"profile ({label}): " + json.dumps(out))
     return out
 
 
-def stream(torch, store, gen, scale, n_launches: int, device):
+def stream(torch, store, gen, scale, n_launches: int, device,
+           batch_of=None):
     """``n_launches`` generated batches through ``write_batch``, each
     synchronised: (spans written, per-launch seconds, wall seconds,
     peaks). ``peaks`` splits peak device memory into the first launch
-    (CUDA warm-up, the recorder's copies) and the launches after it."""
+    (CUDA warm-up, the recorder's copies) and the launches after it.
+    ``batch_of(i)`` makes launch ``i``'s batch (default: the generator's
+    next batch)."""
     t0 = time.perf_counter()
     written = 0
     step_s = []
     peaks = {}
     for i in range(n_launches):
-        batch, _, indexable = gen.next_batch(scale.batch_traces)
+        if batch_of is None:
+            batch, _, indexable = gen.next_batch(scale.batch_traces)
+        else:
+            batch, _, indexable = batch_of(i)
         ts = time.perf_counter()
         store.write_batch(batch, indexable)
         sync(torch, device)
@@ -572,7 +600,6 @@ def main_path(torch, K, dev, scale, device):
     profile = None
     if scale.profile_steps:
         profile = profile_steps(torch, store, gen, scale)
-        written += scale.profile_steps * scale.batch_traces * 7
     traces, names = known_traces(scale)
     store.apply([s for t in traces for s in t])
     sync(torch, device)
@@ -591,6 +618,11 @@ def main_path(torch, K, dev, scale, device):
                          lat, launches, device, peaks)
     result["idle_share"] = (profile["idle_share"] if profile
                             else "not measured")
+    result["device_ms_per_launch"] = (
+        profile["device_busy_ms"] / profile["launches"] if profile
+        else "not measured")
+    result["spans_profiled"] = (profile["launches"] * scale.batch_traces * 7
+                                if profile else 0)
     log("ring path result: " + json.dumps(result))
     del store
     return rec, result
@@ -671,15 +703,357 @@ def paged_path(torch, K, dev, scale, device):
     return rec, result
 
 
-def hist_phase(torch, K, rec):
-    """K1 on the ring path's first step: the fused call of its seven
-    sites against the twin, bitwise, and each site alone through the
-    one-site call, bitwise. Then the fused call's call ms, host us,
-    device ms, twin ms, the seven-call ``index_put_`` yardstick and the
-    bound; and each site's numbers through the one-site call, as PRs 1-3
-    reported them."""
-    if len(rec.hist) != 7:
-        fail(f"recorded {len(rec.hist)} flat_histogram sites, not 7")
+# The daemon's window geometry (``--window-seconds 60 --window-buckets
+# 64``); window-path launches move two buckets a launch, parity batches
+# three, so both lap the 64-slot ring.
+WINDOW = dict(window_seconds=60, window_buckets=64)
+WIN_US = 60_000_000
+WIN_BASE_US = (1_700_000_000_000_000 // WIN_US) * WIN_US
+WIN_STEP_US = 2 * WIN_US
+PARITY_STEP_US = 3 * WIN_US
+WINDOW_LEAVES = ("svc_hist", "ann_svc_counts", "name_presence",
+                 "ann_value_counts", "bann_key_counts", "hll_traces",
+                 "win_epoch", "win_counts", "win_sums", "win_mm")
+
+
+def error_marker(dicts):
+    """Marks error spans of a generated batch in place, in both
+    conventions: every 53rd span's custom annotation becomes "error",
+    every 71st span's binary key becomes "error". Returns ``mark(batch)
+    -> per-span error flags``."""
+    ea = dicts.annotations.encode("error")
+    eb = dicts.binary_keys.encode("error")
+
+    def mark(batch):
+        n = batch.n_spans
+        # Annotation rows alternate (sr, custom) a span.
+        batch.ann_value_id[1::2][::53] = ea
+        batch.bann_key_id[::71] = eb
+        err = np.zeros(n, bool)
+        err[::53] = err[::71] = True
+        return err
+
+    return mark
+
+
+class WindowOracle:
+    """The window cells' span and error counts a service, kept on the
+    host from the generated batches alone: a slot ends holding exactly
+    the rows of the largest bucket that ever landed on it."""
+
+    def __init__(self, n_services: int, slots: int):
+        self.S, self.W = n_services, slots
+        self.svc, self.bkt, self.err = [], [], []
+
+    def add(self, batch, err):
+        n = batch.n_spans
+        svc = batch.service_id[:n].astype(np.int64)
+        tsf = batch.ts_first[:n]
+        ok = (svc >= 0) & (svc < self.S) & (tsf >= 0)
+        self.svc.append(svc[ok])
+        self.bkt.append(tsf[ok] // WIN_US)
+        self.err.append(err[ok])
+
+    def epochs(self):
+        bkt = np.concatenate(self.bkt)
+        ep = np.full(self.W, -1, np.int64)
+        np.maximum.at(ep, bkt % self.W, bkt)
+        return ep
+
+    def counts(self):
+        """(spans, errors) a service over the live cells."""
+        svc, bkt = np.concatenate(self.svc), np.concatenate(self.bkt)
+        err = np.concatenate(self.err)
+        live = bkt == self.epochs()[bkt % self.W]
+        return (np.bincount(svc[live], minlength=self.S),
+                np.bincount(svc[live & err], minlength=self.S))
+
+
+def free_card(torch, device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def timed_mirror(store):
+    """Wraps the store's mirror so each ``delta_of`` (stage 1) and
+    ``apply`` (commit) call adds its host seconds to the returned
+    list."""
+    m = store.sketch_mirror
+    seconds = []
+    for name in ("delta_of", "apply"):
+        def timed(*a, _fn=getattr(m, name)):
+            t = time.perf_counter()
+            out = _fn(*a)
+            seconds.append(time.perf_counter() - t)
+            return out
+        setattr(m, name, timed)
+    return seconds
+
+
+def mirror_equals_device(store, what):
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+
+    st = state_to_numpy(store.state)
+    for name, got in zip(WINDOW_LEAVES, store.sketch_mirror.arrays()):
+        if got.dtype != st[name].dtype or not np.array_equal(got, st[name]):
+            fail(f"{what}: the sketch mirror's {name} differs from the "
+                 f"device leaf")
+
+
+def window_path(torch, K, dev, scale, device, ring):
+    """The daemon's default store: the 1k-service / 2^22 ring with the
+    windowed arena on (60 s x 64 buckets). Streams launches two buckets
+    apart (the slot ring laps), then one late launch at the first
+    launch's time, whose rows lose the epoch war. K1 must launch once a
+    step with eight sites; the mirror must equal the device leaves; ten
+    services' live-cell span and error counts must equal the host
+    oracle's. Times the three windowed reads."""
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
+    free_card(torch, device)
+    store = TorchSpanStore(cfg, device=device.type)
+    gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
+                           n_span_names=scale.names, topology=True, seed=1)
+    mark = error_marker(store.dicts)
+    oracle = WindowOracle(cfg.max_services, cfg.win_slots)
+    mirror_s = timed_mirror(store)
+    m = store.sketch_mirror
+
+    def batch_of(i):
+        batch, lc, ix = gen.next_batch(scale.batch_traces,
+                                       base_ts=WIN_BASE_US + i * WIN_STEP_US)
+        oracle.add(batch, mark(batch))
+        return batch, lc, ix
+
+    rec = Recorder(K, record=("hist",))
+    K.reset_launches()
+    written, step_s, stream_s, peaks = stream(
+        torch, store, gen, scale, scale.window_launches, device, batch_of)
+    profile = None
+    if scale.profile_steps:
+        n = scale.window_launches
+        profile = profile_steps(torch, store, gen, scale,
+                                lambda i: batch_of(n + i), "window")
+    stream_mirror_s = mirror_s[:2 * len(step_s)]
+    epoch_before = oracle.epochs()
+    before = m.win_spans_total
+    # The late launch: the first launch's time, after the ring lapped.
+    late, _, late_ix = batch_of(0)
+    store.write_batch(late, late_ix)
+    sync(torch, device)
+    launches = dict(K.LAUNCHES)
+    rec.restore()
+    cb = store.counter_block()
+    check_launches(launches, ("flat_histogram", "arena_claim",
+                              "arena_write"), device, "window", cb["batches"])
+    late_bkt = late.ts_first[:late.n_spans] // WIN_US
+    late_live = int((late_bkt >= epoch_before[late_bkt % cfg.win_slots]).sum())
+    if m.win_spans_total - before != late_live:
+        fail(f"window path: the late launch folded "
+             f"{m.win_spans_total - before} rows, {late_live} expected")
+    if late_live >= late.n_spans // 2:
+        fail("window path: the late launch's rows did not lose the war")
+    mirror_equals_device(store, "window path")
+    epoch = m.win_epoch
+    b0 = WIN_BASE_US // WIN_US
+    if epoch[b0 % cfg.win_slots] <= b0 or not np.array_equal(
+            epoch, oracle.epochs()):
+        fail("window path: the slot ring did not lap as the oracle did")
+    names = [f"svc-{i:04d}" for i in range(10)]
+    spans_want, errs_want = oracle.counts()
+    live = epoch >= 0
+    for name in names:
+        svc = store.dicts.services.get(name)
+        got = m.win_counts[svc][live].sum(axis=0)
+        if (int(got[0]), int(got[1])) != (int(spans_want[svc]),
+                                          int(errs_want[svc])):
+            fail(f"window path: {name} holds {got[:2]} spans/errors in its "
+                 f"live cells, the host counted "
+                 f"{(spans_want[svc], errs_want[svc])}")
+    reads = {}
+    for label, fn in (
+            ("windowed_quantiles",
+             lambda n: store.windowed_quantiles(n, [0.5, 0.9, 0.99])),
+            ("slo_burn", lambda n: store.slo_burn(
+                n, windows_s=[300, 3600, 21600])),
+            ("latency_heatmap", lambda n: store.latency_heatmap(n))):
+        ms = []
+        for name in names:
+            t = time.perf_counter()
+            out = fn(name)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if out is None:
+                fail(f"window path: {label} of {name} answered None")
+        reads[label] = {"p50_ms": float(np.percentile(ms, 50)),
+                        "max_ms": max(ms)}
+    per_launch = [a + b for a, b in zip(stream_mirror_s[0::2],
+                                        stream_mirror_s[1::2])]
+    steady = step_s[1:] or step_s
+    counters = store.counters()
+    mem = (max(peaks["first_launch_peak_bytes"],
+               torch.cuda.max_memory_allocated())
+           if device.type == "cuda" else 0)
+    result = {
+        "spans_streamed": written, "launches": len(step_s),
+        "spans_profiled": (profile["launches"] * scale.batch_traces * 7
+                           if profile else 0),
+        "ingest_spans_per_s": written / stream_s,
+        "ingest_spans_per_s_after_first": (
+            scale.batch_traces * 7 * len(steady) / sum(steady)),
+        "ring_path_spans_per_s_after_first": ring[
+            "ingest_spans_per_s_after_first"],
+        "mirror_s_per_launch_after_first": float(np.mean(
+            per_launch[1:] or per_launch)),
+        "mirror_share_after_first": (sum(per_launch[1:] or per_launch)
+                                     / sum(steady)),
+        "mirror_delta_s_mean": float(np.mean(stream_mirror_s[0::2])),
+        "mirror_apply_s_mean": float(np.mean(stream_mirror_s[1::2])),
+        "window_spans": counters["window_spans"],
+        "window_errors": counters["window_errors"],
+        "late_rows": late.n_spans, "late_rows_folded": late_live,
+        "device_ms_per_launch": (profile["device_busy_ms"]
+                                 / profile["launches"] if profile
+                                 else "not measured"),
+        "idle_share": profile["idle_share"] if profile else "not measured",
+        "ring_path_device_ms_per_launch": ring.get(
+            "device_ms_per_launch", "not measured"),
+        "buckets_spanned": int(epoch.max() - WIN_BASE_US // WIN_US + 1),
+        "reads_ms": reads,
+        "max_memory_allocated_bytes": mem,
+        "ring_path_max_memory_allocated_bytes": ring[
+            "max_memory_allocated_bytes"], **peaks,
+        "kernel_launches": launches, "ingest_steps": cb["batches"],
+    }
+    log("window path result: " + json.dumps(result))
+    del store
+    return rec, result
+
+
+def span_applies(scale, n_applies: int, n_traces: int, step_us: int,
+                 seed: int):
+    """``n_applies`` lists of Span objects (generated columns decoded,
+    errors marked), one an ``apply`` call, ``step_us`` apart."""
+    from zipkin_tpu_torch.columnar.encode import SpanCodec
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    codec = SpanCodec()
+    gen = ColumnarTraceGen(codec.dicts, n_services=scale.services,
+                           n_span_names=scale.names, topology=True,
+                           seed=seed)
+    mark = error_marker(codec.dicts)
+    out = []
+    for i in range(n_applies):
+        batch, _, _ = gen.next_batch(n_traces,
+                                     base_ts=WIN_BASE_US + i * step_us)
+        mark(batch)
+        out.append(codec.decode(batch))
+    return out
+
+
+def pipeline_path(torch, K, dev, scale, device):
+    """The daemon's ``--pipeline-depth 4`` write path at full width with
+    the window on: the same ``apply`` calls into a serial store and
+    into ``store.pipelined(depth=4)``; the states must be equal (integer
+    leaves bitwise, ``dep_*`` by stated tolerance 2) and so must the
+    mirrors. The first call warms each store and is not timed. The
+    pipelined drive runs twice: at the interpreter's default thread
+    switch interval, and at 0.5 ms (restored after), which shows how
+    much of the pipelined rate the threads lose waiting for the
+    interpreter lock."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+    cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
+    t = time.perf_counter()
+    applies = span_applies(scale, scale.pipe_applies, scale.pipe_traces,
+                           WIN_STEP_US, seed=5)
+    setup_s = time.perf_counter() - t
+    n_timed = sum(len(a) for a in applies[1:])
+    free_card(torch, device)
+    serial = TorchSpanStore(cfg, device=device.type)
+    serial.apply(applies[0])
+    sync(torch, device)
+    t = time.perf_counter()
+    for spans in applies[1:]:
+        serial.apply(spans)
+    sync(torch, device)
+    serial_s = time.perf_counter() - t
+    want = state_to_numpy(serial.state)
+    result = {
+        "applies": len(applies), "spans_timed": n_timed,
+        "spans_per_apply": len(applies[1]), "setup_decode_s": setup_s,
+        "serial_s": serial_s, "serial_spans_per_s": n_timed / serial_s}
+    default_interval = sys.getswitchinterval()
+    for label, interval in (("pipelined", default_interval),
+                            ("pipelined_switch_0p5ms", 5e-4)):
+        piped = TorchSpanStore(cfg, device=device.type,
+                               registry=obs.Registry())
+        K.reset_launches()
+        sys.setswitchinterval(interval)
+        try:
+            with piped.pipelined(depth=4) as pipe:
+                piped.apply(applies[0])
+                piped.drain_pipeline()
+                sync(torch, device)
+                t = time.perf_counter()
+                for spans in applies[1:]:
+                    piped.apply(spans)
+                piped.drain_pipeline()
+                sync(torch, device)
+                piped_s = time.perf_counter() - t
+                if pipe.error is not None:
+                    fail(f"pipeline path: parked error {pipe.error!r}")
+                sketches = {k: getattr(pipe, k).snapshot()
+                            for k in ("h_encode", "h_stage", "h_commit")}
+                units = pipe.c_units.value
+        finally:
+            sys.setswitchinterval(default_interval)
+        launches = dict(K.LAUNCHES)
+        cb = piped.counter_block()
+        check_launches(launches, ("flat_histogram", "arena_claim",
+                                  "arena_write"), device, "pipeline",
+                       cb["batches"])
+        if cb != serial.counter_block():
+            fail("pipeline path: counter blocks differ from the serial "
+                 "store's")
+        _check_states_equal(want, state_to_numpy(piped.state),
+                            f"pipeline path ({label})")
+        for a, b in zip(serial.sketch_mirror.arrays(),
+                        piped.sketch_mirror.arrays()):
+            if not np.array_equal(a, b):
+                fail(f"pipeline path ({label}): the mirrors differ")
+        mirror_equals_device(piped, f"pipeline path ({label})")
+        result[label] = {
+            "switch_interval_s": interval, "units": units,
+            "ingest_steps": cb["batches"], "seconds": piped_s,
+            "spans_per_s": n_timed / piped_s,
+            "over_serial": serial_s / piped_s, "sketches_s": sketches,
+            "window_spans": piped.counters()["window_spans"]}
+        result["kernel_launches"] = launches
+        result["ingest_steps"] = cb["batches"]
+        del piped
+        free_card(torch, device)
+    log("pipeline path result: " + json.dumps(result))
+    del serial
+    return result
+
+
+def hist_phase(torch, K, rec, n_sites: int = 7, alone=None):
+    """K1 on a path's first step: the fused call of its ``n_sites``
+    sites (seven; eight on the window path) against the twin, bitwise,
+    and the sites ``alone`` (default: every site) through the one-site
+    call, bitwise. Then the fused call's call ms, host us, device ms,
+    twin ms, the ``index_put_`` yardstick (one call a site) and the
+    bound; and the numbers of each site alone through the one-site
+    call."""
+    if len(rec.hist) != n_sites:
+        fail(f"recorded {len(rec.hist)} flat_histogram sites, not "
+             f"{n_sites}")
 
     def fresh():
         return [(c.clone(), i, w) for c, i, w in rec.hist]
@@ -730,11 +1104,14 @@ def hist_phase(torch, K, rec):
            "plain_ms": time_ms(torch, lambda: K.histogram_update_many_plain(
                scratch)),
            "library_ms": time_ms(torch, library),
-           "library": "seven index_put_(accumulate=True) calls in a row",
+           "library": f"{n_sites} index_put_(accumulate=True) calls in a "
+                      f"row",
            "bound_ms": bound(sum(rows), sum(touched)), "bound_by": "bytes",
            "max_abs_err": 0}
     site_rows = []
     for k, (counts, idx, _) in enumerate(rec.hist):
+        if alone is not None and k not in alone:
+            continue
         one = K.histogram_update(counts.clone(), idx)
         err = _disagree(one, want[k][0])
         if err:
@@ -757,7 +1134,7 @@ def hist_phase(torch, K, rec):
             "bound_ms": bound(idx.numel(), touched[k]), "max_abs_err": err})
     for r in site_rows:
         log("flat_histogram site: " + json.dumps(r))
-    if row["device_ms"] != "not measured":
+    if row["device_ms"] != "not measured" and alone is None:
         row["sites_ms_sum"] = sum(r["ms"] for r in site_rows)
         row["sites_device_ms_sum"] = sum(r["device_ms"] for r in site_rows)
     log("flat_histogram fused: " + json.dumps(row))
@@ -1039,37 +1416,73 @@ def _check_states_equal(a, b, what):
 
 
 def parity_phase(torch, dev, scale, rehearse: bool, paged: bool):
-    """The same stream at reduced depth on the card (kernels) and on
-    the CPU (plain twins): equal states and, paged, equal planner
-    snapshots. A rehearsal runs both sides on the CPU."""
+    """The same stream at reduced depth, with the windowed arena on
+    (three buckets a batch: the slot ring laps), on the card (kernels)
+    and on the CPU (plain twins): equal states, equal sketch mirrors
+    (each equal to its device leaves) and, paged, equal planner
+    snapshots. Then the same spans through ``apply``: pipelined on the
+    card against serial on the CPU. A rehearsal runs the card's side on
+    the CPU too."""
     from zipkin_tpu_torch.store.convert import state_to_numpy
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
     from zipkin_tpu_torch.tracegen import ColumnarTraceGen
 
     what = "paged parity" if paged else "parity"
-    cfg = full_config(dev, scale.small_log2, scale.services,
+    cfg = full_config(dev, scale.small_log2, scale.services, **WINDOW,
                       **(paged_layout(scale) if paged else {}))
-    states, snaps = [], []
-    for device in ("cpu", "cpu") if rehearse else ("cuda", "cpu"):
+    card = "cpu" if rehearse else "cuda"
+    states, snaps, mirrors = [], [], []
+    for device in (card, "cpu"):
         store = TorchSpanStore(cfg, device=device)
         gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
                                n_span_names=scale.names, topology=True,
                                seed=3)
-        for _ in range(scale.small_batches):
-            batch, _, ix = gen.next_batch(scale.small_traces)
+        mark = error_marker(store.dicts)
+        for i in range(scale.small_batches):
+            batch, _, ix = gen.next_batch(
+                scale.small_traces, base_ts=WIN_BASE_US + i * PARITY_STEP_US)
+            mark(batch)
             store.write_batch(batch, ix)
         store.get_dependencies()
+        mirror_equals_device(store, f"{what} ({device})")
         states.append(state_to_numpy(store.state))
+        mirrors.append(store.sketch_mirror.arrays())
         if paged:
             snaps.append(store._planner.snapshot())
     _check_states_equal(*states, what)
+    for a, b in zip(*mirrors):
+        if not np.array_equal(a, b):
+            fail(f"{what}: the cuda and cpu mirrors differ")
     if paged and snaps[0] != snaps[1]:
         fail(f"{what}: planner snapshots differ")
+    epoch = mirrors[0][6]
+    if epoch.max() - WIN_BASE_US // WIN_US < cfg.win_slots:
+        fail(f"{what}: the window buckets did not outrun the slot ring")
     wp = int(states[0]["write_pos"])
     extra = (f", {snaps[0]['reclaims_total']} page reclaims, planner "
              f"snapshots equal" if paged else "")
-    log(f"{what}: cuda and cpu states equal after {wp} spans "
-        f"(capacity {cfg.capacity}, {wp // cfg.capacity} laps{extra})")
+    log(f"{what}: cuda and cpu states and mirrors equal after {wp} spans "
+        f"(capacity {cfg.capacity}, {wp // cfg.capacity} laps, window "
+        f"buckets {int(epoch[epoch >= 0].min())}..{int(epoch.max())}{extra})")
+    applies = span_applies(scale, scale.small_batches // 4,
+                           4 * scale.small_traces, 4 * PARITY_STEP_US,
+                           seed=6)
+    piped = TorchSpanStore(cfg, device=card)
+    with piped.pipelined(depth=4):
+        for spans in applies:
+            piped.apply(spans)
+    serial = TorchSpanStore(cfg, device="cpu")
+    for spans in applies:
+        serial.apply(spans)
+    _check_states_equal(state_to_numpy(serial.state),
+                        state_to_numpy(piped.state), f"{what} (pipelined)")
+    for a, b in zip(serial.sketch_mirror.arrays(),
+                    piped.sketch_mirror.arrays()):
+        if not np.array_equal(a, b):
+            fail(f"{what}: the pipelined mirror differs")
+    n = int(serial.counter_block()["spans_seen"])
+    log(f"{what}: pipelined {card} and serial cpu states and mirrors "
+        f"equal after {n} spans in {len(applies)} apply calls")
     return wp
 
 
@@ -1134,12 +1547,25 @@ def main() -> int:
                           device)
     gather = phase("paged_page_gather", gather_phase, torch, K, prec)
     del prec
+    wrec, wresult = phase("window_path", window_path, torch, K, dev, scale,
+                          device, result)
+    hist8, hist8_rows = phase("flat_histogram_window", hist_phase, torch, K,
+                              wrec, 8, (7,))
+    del wrec
+    piped = phase("pipeline_path", pipeline_path, torch, K, dev, scale,
+                  device)
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
     phase("paged_parity", parity_phase, torch, dev, scale, args.rehearse,
           True)
     big = max(hist_rows, key=lambda r: r["cells"])
     by_path = {"ring": result["kernel_launches"],
-               "paged": presult["kernel_launches"]}
+               "paged": presult["kernel_launches"],
+               "window": wresult["kernel_launches"],
+               "pipeline": piped["kernel_launches"]}
+    steps_by_path = {"ring": result["ingest_steps"],
+                     "paged": presult["ingest_steps"],
+                     "window": wresult["ingest_steps"],
+                     "pipeline": piped["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",
@@ -1147,17 +1573,24 @@ def main() -> int:
          "launches": result["kernel_launches"]["flat_histogram"],
          "launches_by_path": {p: v["flat_histogram"]
                               for p, v in by_path.items()},
-         "steps_by_path": {"ring": result["ingest_steps"],
-                           "paged": presult["ingest_steps"]},
-         "max_abs_err": max([hist["max_abs_err"]]
-                            + [r["max_abs_err"] for r in hist_rows]),
+         "steps_by_path": steps_by_path,
+         "max_abs_err": max([hist["max_abs_err"], hist8["max_abs_err"]]
+                            + [r["max_abs_err"]
+                               for r in hist_rows + hist8_rows]),
          **{k: hist[k] for k in (
              "ms", "host_us", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library")},
          "shape": {k: hist[k] for k in ("sites", "rows", "cells")},
          "largest_site": {k: big[k] for k in (
              "cells", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
-             "library_ms")}},
+             "library_ms")},
+         "window_path": {
+             **{k: hist8[k] for k in (
+                 "sites", "rows", "cells", "touched", "ms", "host_us",
+                 "device_ms", "plain_ms", "bound_ms", "library_ms")},
+             "eighth_site": {k: hist8_rows[0][k] for k in (
+                 "cells", "rows", "touched", "ms", "device_ms", "plain_ms",
+                 "bound_ms", "library_ms")}}},
         {"name": "arena_claim_scatter", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/arena_claim_scatter.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:247",

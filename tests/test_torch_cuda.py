@@ -61,13 +61,25 @@ def test_cuda_histogram_matches_twin(cuda, m):
     np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
 
 
-def _hist_site(seed, m, n, weighted=False, hot=False, cms=False):
+def _hist_site(seed, m, n, weighted=False, hot=False, cms=False,
+               window=False):
     """One site as numpy: (counts, idx, weights or None). ``cms``: n rows
     into a [4, m // 4] count-min table, flattened as the step does;
-    ``hot``: every row hits cell 3."""
+    ``hot``: every row hits cell 3; ``window``: the window arena's
+    counts, [m // 192, 64, 3], three index sets of n // 3 rows on two
+    live slots as the step makes them (masked rows -1)."""
     rng = np.random.default_rng(seed)
     counts = (np.arange(m) % 7).astype(np.int32)
-    if cms:
+    if window:
+        k = n // 3
+        cid = rng.integers(0, m // 192, k) * 64 + rng.integers(5, 7, k)
+        live = rng.random(k) < 0.9
+        idx = np.concatenate([np.where(live, cid * 3, -1),
+                              np.where(live & (rng.random(k) < 0.02),
+                                       cid * 3 + 1, -1),
+                              np.where(live, cid * 3 + 2, -1)])
+        idx = idx.astype(np.int32)
+    elif cms:
         w4 = m // 4
         rows = rng.integers(0, w4, (4, n // 4)) + (np.arange(4) * w4)[:, None]
         rows[:, rng.random(n // 4) < 0.1] = -1
@@ -97,6 +109,15 @@ _MANY = {
                     dict(m=4 * 65_536, n=524_288, cms=True),
                     dict(m=4096, n=50_001)],
     "empty site": [dict(m=1000, n=0), dict(m=1 << 20, n=1000)],
+    # The window path's first step: the seven ring sites at 114,688
+    # spans (padded to 131,072) and win_counts, 2,097,152 rows into
+    # 9,672,144 cells.
+    "window path: eight sites": [
+        dict(m=1000 * 2048, n=131_072), dict(m=1000, n=131_072),
+        dict(m=1000, n=262_144), dict(m=1000 * 2048, n=262_144),
+        dict(m=1000 * 4096, n=262_144), dict(m=1000 * 1024, n=131_072),
+        dict(m=4 * 65_536, n=524_288, cms=True),
+        dict(m=1000 * 64 * 3, n=393_216, window=True)],
 }
 
 
@@ -339,3 +360,116 @@ def test_cuda_page_gather_checks_inputs(cuda):
     with pytest.raises(TypeError):
         K.paged_page_gather(cols[:-1] + [cols[-1].float()], pages.to(cuda),
                             128)
+
+
+# -- the window and pipeline paths on the card ------------------------------
+
+WIN_US = 60_000_000
+
+
+def _window_store(**kw):
+    from zipkin_tpu_torch.store import device as tdev
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+    cfg = tdev.StoreConfig(
+        capacity=1 << 12, ann_capacity=1 << 13, bann_capacity=1 << 12,
+        max_services=64, max_span_names=128, max_annotation_values=256,
+        max_binary_keys=64, cms_width=1 << 12, hll_p=10,
+        quantile_buckets=2048, window_seconds=60, window_buckets=16,
+        batch_spans=512, use_pallas=True)
+    return TorchSpanStore(cfg, **kw)
+
+
+def _window_applies(n_applies=8, n_traces=300):
+    """Span lists (generated columns decoded, every 37th span's custom
+    annotation an "error"), three window buckets apart."""
+    from zipkin_tpu_torch.columnar.encode import SpanCodec
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    codec = SpanCodec()
+    gen = ColumnarTraceGen(codec.dicts, n_services=40, n_span_names=100,
+                           topology=True, seed=9)
+    err = codec.dicts.annotations.encode("error")
+    out = []
+    for i in range(n_applies):
+        batch, _, _ = gen.next_batch(
+            n_traces, base_ts=(1 << 50) // WIN_US * WIN_US + 3 * i * WIN_US)
+        batch.ann_value_id[1::2][::37] = err
+        out.append(codec.decode(batch))
+    return out
+
+
+def _assert_same_store(a, b):
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+
+    sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+    for k, ref in sa.items():
+        got = sb[k]
+        if k == "counters":
+            assert {c: int(v) for c, v in ref.items()} == {
+                c: int(v) for c, v in got.items()}
+        elif k.startswith("dep_") and ref.dtype == np.float32:
+            # Stated tolerance 2: float32 moments summed in atomic order.
+            r, g = ref.astype(np.float64), got.astype(np.float64)
+            scale = np.abs(r).reshape(-1, r.shape[-1]).max(0)
+            np.testing.assert_array_equal(r[..., 0], g[..., 0], err_msg=k)
+            assert np.all(np.abs(r - g) <= 1e-5 * (np.abs(r) + scale)), k
+        else:
+            np.testing.assert_array_equal(ref, got, err_msg=k)
+    for x, y in zip(a.sketch_mirror.arrays(), b.sketch_mirror.arrays()):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_pipelined_matches_serial(cuda):
+    """The pipeline's side-stream H2D and commit thread on the card give
+    the serial store's state: integer leaves bitwise, the window arena
+    among them; K1 once a step with its eight sites."""
+    applies = _window_applies()
+    serial = _window_store(device="cuda")
+    for spans in applies:
+        serial.apply(spans)
+    piped = _window_store(device="cuda")
+    before = K.LAUNCHES["flat_histogram"]
+    with piped.pipelined(depth=4) as pipe:
+        for spans in applies:
+            piped.apply(spans)
+        piped.drain_pipeline()
+        assert pipe._h2d is not None
+        assert pipe._h2d.cuda_stream != pipe._commit_stream.cuda_stream
+    torch.cuda.synchronize()
+    steps = piped.counter_block()["batches"]
+    assert steps >= len(applies)
+    assert K.LAUNCHES["flat_histogram"] - before == steps
+    assert piped.counters()["window_errors"] > 0
+    _assert_same_store(serial, piped)
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_commit_failure_surfaces_on_drain(cuda, monkeypatch):
+    from zipkin_tpu_torch.store import device as tdev
+
+    applies = _window_applies(n_applies=3)
+    steps = tdev.ingest_steps
+    failed = []
+
+    def fail_once(state, batches):
+        if not failed:
+            failed.append(sum(b.n_spans for b in batches))
+            raise RuntimeError("step failed on the commit thread")
+        return steps(state, batches)
+
+    monkeypatch.setattr(tdev, "ingest_steps", fail_once)
+    store = _window_store(device="cuda")
+    store.start_pipeline(2)
+    store.apply(applies[0])
+    with pytest.raises(RuntimeError, match="commit thread"):
+        store.drain_pipeline()
+    store.apply(applies[1])
+    store.apply(applies[2])
+    store.stop_pipeline()
+    torch.cuda.synchronize()
+    # The failed unit's spans are dropped, the rest committed.
+    assert 0 < failed[0] <= len(applies[0])
+    assert store.counter_block()["spans_seen"] == sum(
+        len(a) for a in applies) - failed[0]

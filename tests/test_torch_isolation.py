@@ -45,6 +45,9 @@ def test_package_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['zipkin_tpu'] = None; "
             "import zipkin_tpu_torch.store.torch_store, "
-            "zipkin_tpu_torch.store.convert, zipkin_tpu_torch.tracegen")
+            "zipkin_tpu_torch.store.convert, zipkin_tpu_torch.tracegen, "
+            "zipkin_tpu_torch.store.pipeline, zipkin_tpu_torch.store.mirror, "
+            "zipkin_tpu_torch.store.analytics, "
+            "zipkin_tpu_torch.aggregate.windows, zipkin_tpu_torch.obs")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

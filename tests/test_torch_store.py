@@ -212,10 +212,18 @@ def test_state_roundtrip_and_plane_order():
 
 
 def test_unported_layouts_raise():
+    """Both layouts and the windowed arena are ported; what the reference
+    refuses, the port refuses too."""
     paged = tdev.StoreConfig(layout="paged", page_rows=128)
     assert paged.paged_enabled and paged.n_pages == paged.capacity // 128
-    with pytest.raises(NotImplementedError):
-        tdev.StoreConfig(window_seconds=60)
+    win = tdev.StoreConfig(window_seconds=60, window_buckets=64)
+    ref = dev.StoreConfig(window_seconds=60, window_buckets=64)
+    assert win.window_enabled and (win.win_slots, win.window_us,
+                                   win.win_x_shift) == (
+        ref.win_slots, ref.window_us, ref.win_x_shift)
+    assert tdev.StoreConfig().win_slots == dev.StoreConfig().win_slots == 1
+    with pytest.raises(ValueError, match="layout"):
+        tdev.StoreConfig(layout="columnar")
 
 
 # ---------------------------------------------------------------------------

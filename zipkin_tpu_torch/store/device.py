@@ -22,8 +22,11 @@ the paged trace read gathers its pages through
 the page-gather kernel (``ops/kernels.py``); on CPU tensors those
 wrappers run their plain twins. Both span layouts are ported:
 ``layout="ring"`` and ``layout="paged"`` (slots and gids planned by the
-host ``store/paged.PagePlanner``). The windowed arena is not:
-``StoreConfig`` raises ``NotImplementedError`` for ``window_seconds > 0``.
+host ``store/paged.PagePlanner``). With ``window_seconds > 0`` the step
+also folds every span into the windowed Moments-sketch arena
+(``win_*``; host math and mirror twin in ``aggregate/windows.py``); its
+``win_counts`` update is the eighth site of the fused flat-histogram
+launch. ``stage_batches`` is the ingest pipeline's stage-2 H2D copy.
 """
 
 from __future__ import annotations
@@ -97,9 +100,6 @@ class StoreConfig(_StoreConfigFields):
         if self.layout not in ("ring", "paged"):
             raise ValueError(f"unknown layout {self.layout!r} "
                              "(expected 'ring' or 'paged')")
-        if self.window_seconds > 0:
-            raise NotImplementedError(
-                "window_seconds > 0: the windowed arena is not ported")
         if self.rank_path not in ("auto", "argsort", "counting"):
             raise ValueError(f"unknown rank_path {self.rank_path!r}")
         return self
@@ -197,9 +197,30 @@ class StoreConfig(_StoreConfigFields):
 
     TR_SPAN, TR_ANN, TR_BANN = range(3)
 
+    # -- windowed analytics arena geometry --------------------------------
+
+    @property
+    def window_us(self) -> int:
+        return int(self.window_seconds) * 1_000_000
+
+    @property
+    def window_enabled(self) -> bool:
+        return self.window_seconds > 0 and self.window_buckets > 0
+
     @property
     def win_slots(self) -> int:
-        return 1  # the disabled arena's stub (schema-compatible leaves)
+        """The ring length with the arena on; a 1-slot stub otherwise
+        (the state keeps its schema without [S, W, k] memory)."""
+        return max(1, self.window_buckets) if self.window_enabled else 1
+
+    @property
+    def win_x_shift(self) -> int:
+        """Right shift of the fine bucket index that gives the window
+        cells' quantized log-duration ``x`` (one definition, shared
+        with the host mirror)."""
+        from zipkin_tpu_torch.aggregate.windows import win_x_shift
+
+        return win_x_shift(self.quantile_buckets)
 
     @property
     def gamma(self) -> float:
@@ -595,6 +616,67 @@ def batch_to_device(db: DeviceBatch, device) -> DeviceBatch:
         else:
             out[f] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return DeviceBatch(**out)
+
+
+def stage_batches(dbs, device):
+    """Stage 2 of the ingest pipeline (the reference's ``stage_batch``):
+    a unit's numpy DeviceBatches -> ``(batches, buf)``, tensors on
+    ``device``. On CUDA every column of every batch is packed into ONE
+    pinned host buffer (8-byte columns first, so every column's offset
+    stays aligned to its element size) and sent in one copy with
+    ``non_blocking=True`` on the current stream; each column is a view
+    of the device buffer ``buf``. One packing copy and one transfer a
+    unit, not one a column: each call that releases the interpreter
+    lock costs the staging thread a wait to get it back while the other
+    stages run Python. The caller records an event after the copy and
+    has the stream that runs the step wait on it (``await_staged``).
+    Other devices take ``batch_to_device`` (``buf`` None)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return tuple(batch_to_device(db, dev) for db in dbs), None
+    cols = staging_columns(dbs)
+    host = torch.empty(sum(c[2].nbytes for c in cols), dtype=torch.uint8,
+                       pin_memory=True)
+    np.concatenate([c[2].reshape(-1).view(np.uint8) for c in cols],
+                   out=host.numpy())
+    buf = host.to(dev, non_blocking=True)
+    return staged_views(dbs, cols, buf), buf
+
+
+def staging_columns(dbs):
+    """The packing order of ``stage_batches``: (batch index, field,
+    array) for every array column, 8-byte columns first (a stable sort,
+    so each column's byte offset is a multiple of its element size)."""
+    cols = [(i, f, np.ascontiguousarray(getattr(db, f)))
+            for i, db in enumerate(dbs) for f in DeviceBatch._fields
+            if f not in _COUNT_FIELDS]
+    cols.sort(key=lambda c: -c[2].dtype.itemsize)
+    return cols
+
+
+def staged_views(dbs, cols, buf: torch.Tensor):
+    """The batches whose columns are views of ``buf``, the uint8 buffer
+    that holds ``cols`` packed in order."""
+    out = [{f: int(getattr(db, f)) for f in _COUNT_FIELDS} for db in dbs]
+    off = 0
+    for i, f, a in cols:
+        dtype = torch.from_numpy(a[:0]).dtype
+        out[i][f] = buf[off:off + a.nbytes].view(dtype).view(a.shape)
+        off += a.nbytes
+    return tuple(DeviceBatch(**o) for o in out)
+
+
+def await_staged(buf, done, device) -> None:
+    """Before a step on staged batches: the current stream of ``device``
+    waits for the staging copy's event ``done`` (None: nothing to wait
+    for), and the staged buffer is recorded as used on that stream, so
+    the caching allocator does not hand its memory back to the staging
+    stream before the step is done with it."""
+    if done is None:
+        return
+    stream = torch.cuda.current_stream(device)
+    stream.wait_event(done)
+    buf.record_stream(stream)
 
 
 def unstack_batches(stacked: DeviceBatch):
@@ -1197,9 +1279,9 @@ def ingest_step(state: StoreState, b: DeviceBatch) -> StoreState:
             use_kernel=c.use_pallas)
 
     # -- latency histogram, counters, presence ----------------------------
-    # Seven scatter-adds of weight 1 into seven distinct count arrays,
-    # made after the count-min site in one call (one kernel launch with
-    # ``use_pallas``).
+    # Seven scatter-adds of weight 1 into seven distinct count arrays
+    # (eight with the windowed arena's counts), made after the last site
+    # in one call (one kernel launch with ``use_pallas``).
     svc_ok = (mask & (b.service_id >= 0) & (b.service_id < S)
               & (b.duration >= 0))
     bidx = Q.bucket_index(b.duration, c.quantile_buckets, c.gamma)
@@ -1239,6 +1321,52 @@ def ingest_step(state: StoreState, b: DeviceBatch) -> StoreState:
     cms_flat = torch.where(mask[None, :], cms_flat,
                            torch.full_like(cms_flat, -1)).reshape(-1)
     hist.append((lv["cms_trace_spans"], cms_flat))
+
+    # -- windowed Moments-sketch arena -------------------------------------
+    # (service x ring-indexed time bucket) integer cells; the host mirror
+    # folds the same rows in numpy (aggregate/windows.apply_window_update)
+    # and every op here is an integer add or max, so the two agree bitwise
+    # in any order. In place: the epoch war advances win_epoch, the slots
+    # it advanced are cleared (judged against the epochs from before the
+    # war), and win_counts joins the fused scatter as its eighth site.
+    if c.window_enabled:
+        Wn = c.win_slots
+        w_ok = svc_cnt_ok & (b.ts_first >= 0)
+        zero = torch.zeros_like(b.ts_first)
+        a_bkt = torch.where(w_ok, b.ts_first, zero) // c.window_us
+        slot = torch.where(w_ok, a_bkt % Wn, zero)
+        epoch = lv["win_epoch"]
+        old_epoch = epoch.clone()
+        _war_max64(epoch, slot, a_bkt, w_ok)
+        stale = (epoch != old_epoch)[None, :, None]
+        lv["win_counts"].masked_fill_(stale, 0)
+        lv["win_sums"].masked_fill_(stale, 0)
+        lv["win_mm"].masked_fill_(stale, I32_MIN)
+        # Rows older than their slot's winner (late rows, the losers of an
+        # in-batch ring wrap) are dropped.
+        live = w_ok & (a_bkt == epoch[slot])
+        cid = g.to(torch.int64) * Wn + slot
+        d_ok = live & (b.duration >= 0)
+        base3 = (cid * 3).to(torch.int32)
+        hist.append((lv["win_counts"], torch.cat([
+            torch.where(live, base3, neg_p),
+            torch.where(live & b.error_flag, base3 + 1, neg_p),
+            torch.where(d_ok, base3 + 2, neg_p)])))
+        # The reference drops masked rows (``mode="drop"``); torch has no
+        # drop mode, so they add 0 to cell 0 and offer I32_MIN to cell 0's
+        # max: both no-ops.
+        x = torch.where(d_ok, (bidx >> c.win_x_shift).to(torch.int64), zero)
+        b4 = torch.where(d_ok, cid * 4, zero)
+        lv["win_sums"].view(-1).index_add_(
+            0, torch.cat([b4, b4 + 1, b4 + 2, b4 + 3]),
+            torch.cat([x, x * x, x * x * x, x * x * x * x]))
+        b2 = torch.where(d_ok, cid * 2, zero)
+        x32 = x.to(torch.int32)
+        lost = torch.full_like(x32, I32_MIN)
+        lv["win_mm"].view(-1).scatter_reduce_(
+            0, torch.cat([b2, b2 + 1]),
+            torch.cat([torch.where(d_ok, -x32, lost),
+                       torch.where(d_ok, x32, lost)]), "amax")
     if c.use_pallas:
         K.histogram_update_many([
             (counts, idx.to(torch.int32).contiguous(), None)

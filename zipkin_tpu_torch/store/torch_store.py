@@ -14,16 +14,22 @@ in ``_pad_unit``, whole-trace reads go through the page table
 because their trust gates are FIFO-gid arithmetic.
 
 The hooks ``_plan_units`` / ``_pad_unit`` / ``_commit_unit`` keep the
-reference's names and contracts. Not ported yet (later slices): the
-ingest pipeline, WAL, eviction capture and cold tier, the sketch mirror
-and query engine, checkpoints, windowed analytics, the native thrift
-fast path, sharding and the daemon.
+reference's names and contracts, and the serial path and the ingest
+pipeline (``start_pipeline``, ``store/pipeline.py``) cut identical
+launch units through them. Every commit folds its unit's host sketch
+delta into ``sketch_mirror`` before the frontier bump; the windowed
+reads (``WindowedAnalytics``: ``windowed_quantiles``, ``slo_burn``,
+``latency_heatmap``) answer from it. Not ported yet (later slices): WAL,
+eviction capture and cold tier, the query engine, checkpoints, the
+native thrift fast path, sharding and the daemon.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -37,9 +43,11 @@ from zipkin_tpu_torch.models.dependencies import (
     Moments,
 )
 from zipkin_tpu_torch.models.span import Span
+from zipkin_tpu_torch.aggregate import windows as win
 from zipkin_tpu_torch.ops import hll
 from zipkin_tpu_torch.ops import quantile as Q
 from zipkin_tpu_torch.store import device as dev
+from zipkin_tpu_torch.store.analytics import WindowedAnalytics
 from zipkin_tpu_torch.store.base import (
     MAX_TTL_ENTRIES,
     IndexedTraceId,
@@ -60,7 +68,13 @@ from zipkin_tpu_torch.store.base import (
     should_index,
     topk_ids_with_escalation,
 )
+from zipkin_tpu_torch.store.mirror import SketchMirror
 from zipkin_tpu_torch.store.paged import PagePlanner
+from zipkin_tpu_torch.store.pipeline import (
+    IngestPipeline,
+    IngestUnit,
+    unit_batches,
+)
 
 _BATCH_MIN = 64
 
@@ -74,17 +88,6 @@ def _next_pow2(n: int) -> int:
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy()
-
-
-class IngestUnit(NamedTuple):
-    """One planned launch group, padded (host numpy)."""
-
-    db: dev.DeviceBatch  # stacked along a leading axis when chained
-    n_spans: int
-    n_anns: int
-    n_banns: int
-    n_parts: int
-    chained: bool
 
 
 def resolve_multi_probes(config, dicts, queries):
@@ -285,23 +288,38 @@ _BANN_COLS = ("bann_key_id", "bann_value_id", "bann_type",
               "bann_service_id", "bann_endpoint_id")
 
 
-class TorchSpanStore(SpanStore):
+class TorchSpanStore(WindowedAnalytics, SpanStore):
     """SpanStore over the torch device store. ``device`` defaults to
     ``"cuda"`` and raises when CUDA is missing unless the caller passes
-    ``device="cpu"``."""
+    ``device="cpu"``. ``registry`` takes the ingest pipeline's metrics
+    (default: the process-wide ``obs.default_registry()``)."""
 
     MAX_CHUNK = 4096
     MAX_TTL_ENTRIES = MAX_TTL_ENTRIES
     CHAIN_SIZES = (16, 8, 4)
     SWEEP_EVERY = 64
     DEFAULT_TTL_S = 1.0
+    # The ingest pipeline's default prefetch depth and its staged units.
+    PIPELINE_DEPTH = 8
+    STAGE_BUFFERS = 2
 
     def __init__(self, config: Optional[dev.StoreConfig] = None,
-                 codec: Optional[SpanCodec] = None, device="cuda"):
+                 codec: Optional[SpanCodec] = None, device="cuda",
+                 registry=None):
         self.config = config or dev.StoreConfig()
         self.device = dev.resolve_device(device)
         self.codec = codec or SpanCodec()
         self.state = dev.init_state(self.config, self.device)
+        self._registry = registry
+        # Pipelined ingest (store/pipeline.py), opt-in through
+        # start_pipeline(): apply() becomes stage 1 and the pipeline's
+        # commit thread is the only device writer.
+        self._pipeline: Optional[IngestPipeline] = None
+        # Host twins of the device aggregates and the windowed arena,
+        # folded by every commit (store/mirror.py); the dictionaries
+        # resolve the "error" ids of the window cells' error counts.
+        self.sketch_mirror = SketchMirror(self.config,
+                                          dicts=self.codec.dicts)
         # Paged layout: the host page allocator plans every unit's slots
         # and gids (``slot == gid % capacity`` still holds, so the ring
         # scans stay layout-blind).
@@ -353,6 +371,9 @@ class TorchSpanStore(SpanStore):
                 self._read_epoch += 1
             self.pins.note_write(to_signed64, spans)
             prune_ttls(self.ttls, self.MAX_TTL_ENTRIES)
+            if self._pipeline is not None:
+                self._apply_pipelined(spans)
+                return
             parts = []
             for part in self._chunk_by_trace(spans):
                 batch = self.codec.encode(part)
@@ -365,6 +386,38 @@ class TorchSpanStore(SpanStore):
                     parts = []
             if parts:
                 self._write_parts(parts)
+
+    def _apply_pipelined(self, spans: Sequence[Span]) -> None:
+        """Stage 1 of the ingest pipeline (caller thread, under the
+        encode lock): encode, index bits, sketch delta and padding,
+        feeding the prefetch queue. The chunk flush boundary, the
+        CHAIN_SIZES grouping and the pads are the serial path's, so both
+        modes cut the same launch units."""
+        pipe = self._pipeline
+        self.ensure_writable()
+        t0 = time.perf_counter()
+        stalled = 0.0
+        parts = []
+        for part in self._chunk_by_trace(spans):
+            batch = self.codec.encode(part)
+            indexable = np.fromiter((should_index(s) for s in part), bool,
+                                    len(part))
+            parts.extend(self._chunk_columnar(
+                batch, self._name_lc_ids(batch), indexable))
+            if len(parts) >= self.CHAIN_SIZES[0]:
+                stalled += self._feed_units(pipe, parts)
+                parts = []
+        if parts:
+            stalled += self._feed_units(pipe, parts)
+        pipe.h_encode.observe(max(time.perf_counter() - t0 - stalled, 0.0))
+
+    def _feed_units(self, pipe: IngestPipeline, parts) -> float:
+        """Pad and enqueue one flushed part list as launch units; returns
+        the seconds spent blocked on the pipeline's backpressure."""
+        stalled = 0.0
+        for group in self._plan_units(parts):
+            stalled += pipe.feed(self._pad_unit(group))
+        return stalled
 
     def _chunk_by_trace(self, spans: Sequence[Span]):
         chunk_size = self._max_chunk_spans()
@@ -456,7 +509,13 @@ class TorchSpanStore(SpanStore):
     def write_batch(self, batch: SpanBatch, indexable: np.ndarray) -> None:
         """Upload one columnar batch and run the fused ingest step. The
         batch must fit the rings (``apply`` chunks; callers of this
-        method must)."""
+        method must). Raises while an ingest pipeline runs: its commit
+        thread is then the only device writer."""
+        if self._pipeline is not None:
+            raise RuntimeError(
+                "write_batch commits inline and cannot run while an "
+                "ingest pipeline is active; use apply() or "
+                "stop_pipeline() first")
         c = self.config
         if (batch.n_spans > min(c.capacity, c.pending_slots)
                 or batch.n_annotations > c.ann_capacity
@@ -505,10 +564,21 @@ class TorchSpanStore(SpanStore):
 
     def _pad_unit(self, group) -> IngestUnit:
         """Pad one planned group to its pow2 buckets (host numpy);
-        chained groups pad every chunk to the group max and stack. On a
-        paged store the planner plans the unit's slot and gid claims
-        here, in feed order; every chunk's reclaim list pads to one pow2
-        length across the unit."""
+        chained groups pad every chunk to the group max and stack. The
+        unit carries its sketch-mirror delta and, with the window on,
+        each span's error bit (a pure function of the batch and the
+        dictionaries). On a paged store the planner plans the unit's
+        slot and gid claims here, in feed order; every chunk's reclaim
+        list pads to one pow2 length across the unit."""
+        sketch = self.sketch_mirror.delta_of(group)
+        if self.config.window_enabled:
+            ea, eb = win.error_ids(self.dicts)
+
+            def err_of(b):
+                return win.span_error_flags(b, ea, eb)
+        else:
+            def err_of(b):
+                return None
         chunks = [None] * len(group)
         pad_rc = 1
         if self._planner is not None:
@@ -531,37 +601,49 @@ class TorchSpanStore(SpanStore):
                 b, name_lc_id=lc, indexable=ix,
                 pad_spans=_next_pow2(b.n_spans),
                 pad_anns=_next_pow2(b.n_annotations),
-                pad_banns=_next_pow2(b.n_binary), **paged_cols(chunks[0]))
+                pad_banns=_next_pow2(b.n_binary), error_flag=err_of(b),
+                **paged_cols(chunks[0]))
             return IngestUnit(db, b.n_spans, b.n_annotations, b.n_binary,
-                              1, False)
+                              1, False, sketch=sketch)
         pad_s = _next_pow2(max(b.n_spans for b, _, _ in group))
         pad_a = _next_pow2(max(b.n_annotations for b, _, _ in group))
         pad_b = _next_pow2(max(b.n_binary for b, _, _ in group))
         dbs = [dev.make_device_batch(b, name_lc_id=lc, indexable=ix,
                                      pad_spans=pad_s, pad_anns=pad_a,
-                                     pad_banns=pad_b, **paged_cols(cp))
+                                     pad_banns=pad_b, error_flag=err_of(b),
+                                     **paged_cols(cp))
                for (b, lc, ix), cp in zip(group, chunks)]
         return IngestUnit(
             dev.stack_device_batches(dbs),
             sum(b.n_spans for b, _, _ in group),
             sum(b.n_annotations for b, _, _ in group),
-            sum(b.n_binary for b, _, _ in group), len(group), True)
+            sum(b.n_binary for b, _, _ in group), len(group), True,
+            sketch=sketch)
 
     def _commit_unit(self, unit: IngestUnit) -> None:
-        """The device commit: bucket-close trigger, the in-place step(s),
-        host mirror bumps and the sweep cadence. A paged unit's step
-        invalidates the pages it reclaims; the reference captures their
-        rows for the cold tier first, which the port does not have yet:
-        reclaimed rows are not captured until that slice lands."""
+        """The device commit behind both write modes (inline under
+        ``_lock`` on the serial path; alone on the pipeline's commit
+        thread): bucket-close trigger, the in-place step(s), the sketch
+        mirror fold, host clocks and the sweep cadence. A unit the
+        pipeline staged brings its device batches; the step waits for
+        their copy. A paged unit's step invalidates the pages it
+        reclaims; the reference captures their rows for the cold tier
+        first, which the port does not have yet: reclaimed rows are not
+        captured until that slice lands."""
         self.ensure_writable()
         self._maybe_archive(unit.n_spans)
-        if unit.chained:
+        if unit.staged is None:
             batches = [dev.batch_to_device(b, self.device)
-                       for b in dev.unstack_batches(unit.db)]
+                       for b in unit_batches(unit)]
         else:
-            batches = [dev.batch_to_device(unit.db, self.device)]
+            batches, buf, done = unit.staged
+            dev.await_staged(buf, done, self.device)
         with self._state_lock:
             dev.ingest_steps(self.state, batches)
+            # The mirror before the frontier bump: a read at frontier F
+            # already sees commit F's delta.
+            if unit.sketch is not None:
+                self.sketch_mirror.apply(unit.sketch)
             self._wp += unit.n_spans
             self._step_seq += 1
             self._batches_since_sweep += unit.n_parts
@@ -596,6 +678,64 @@ class TorchSpanStore(SpanStore):
             self._archived = self._wp
             self._batches_since_sweep = 0
 
+    # -- pipelined ingest lifecycle (store/pipeline.py) -----------------
+
+    def start_pipeline(self, depth: Optional[int] = None) -> IngestPipeline:
+        """Switch the write path to the three-stage ingest pipeline:
+        apply() becomes stage 1, a stage thread copies units to the
+        device (``STAGE_BUFFERS`` in flight), a commit thread runs the
+        steps. ``depth`` bounds the prefetch queue
+        (writer backpressure). Reads see a consistent, possibly a few
+        units stale state until drain_pipeline()."""
+        with self._lock:
+            if self._pipeline is not None:
+                raise RuntimeError("ingest pipeline already running")
+            self._pipeline = IngestPipeline(
+                self, depth or self.PIPELINE_DEPTH, self.STAGE_BUFFERS,
+                registry=self._registry)
+            return self._pipeline
+
+    def drain_pipeline(self) -> None:
+        """Block until every accepted unit is committed (no-op without a
+        pipeline); re-raises a parked pipeline error. After it returns,
+        reads see everything apply() accepted before the call."""
+        p = self._pipeline
+        if p is not None:
+            p.drain()
+
+    def stop_pipeline(self, raise_errors: bool = True) -> None:
+        """Drain, stop the pipeline's threads and return to the serial
+        write path. The quiesce runs under the encode lock with the
+        pipeline still published, so no writer can fall through to the
+        serial path while the commit thread still has units."""
+        with self._lock:
+            p = self._pipeline
+            if p is None:
+                return
+            p.stop()
+            self._pipeline = None
+        err = p.take_error()
+        if raise_errors and err is not None:
+            raise err
+
+    def ingest_pipeline(self) -> Optional[IngestPipeline]:
+        """The running ingest pipeline, or None on the serial path."""
+        return self._pipeline
+
+    @contextlib.contextmanager
+    def pipelined(self, depth: Optional[int] = None):
+        """Scoped pipelined ingest: ``with store.pipelined(8): ...``;
+        drains and stops on exit (re-raising any parked error)."""
+        pipe = self.start_pipeline(depth)
+        try:
+            yield pipe
+        finally:
+            self.stop_pipeline()
+
+    def close(self) -> None:
+        """Stop the pipeline, committing every accepted unit."""
+        self.stop_pipeline(raise_errors=False)
+
     # -- TTL / pins -----------------------------------------------------
 
     def set_time_to_live(self, trace_id: int, ttl_seconds: float) -> None:
@@ -618,6 +758,21 @@ class TorchSpanStore(SpanStore):
 
     def write_frontier(self) -> Tuple[int, int]:
         return (self._step_seq, self._read_epoch)
+
+    def ensure_sketch_mirror(self) -> SketchMirror:
+        """The sketch mirror, resynced from the device leaves in one
+        fetch if a state swap left it cold; incremental deltas keep it
+        warm after that. Lock order: the state lock, then the
+        mirror's (the commit path takes them in the same order)."""
+        m = self.sketch_mirror
+        if not m.warm:
+            with self._state_lock:
+                st = self.state
+                m.adopt(*(_np(getattr(st, f)) for f in (
+                    "svc_hist", "ann_svc_counts", "name_presence",
+                    "ann_value_counts", "bann_key_counts", "hll_traces",
+                    "win_epoch", "win_counts", "win_sums", "win_mm")))
+        return m
 
     # -- id lookups -----------------------------------------------------
 
@@ -998,11 +1153,18 @@ class TorchSpanStore(SpanStore):
         out["index_hits"] = float(self.index_hits)
         out["index_scan_fallbacks"] = float(self.index_fallbacks)
         out["batch_spans_limit"] = float(self._max_chunk_spans())
+        p = self._pipeline
+        if p is not None:
+            out["pipeline_prefetch_depth"] = float(p.queued())
         if self._planner is not None:
             pstats = self._planner.stats()
             out["pages_active"] = float(pstats["pages_active"])
             out["pages_free"] = float(pstats["pages_free"])
             out["page_reclaims_total"] = float(pstats["page_reclaims"])
+        # Windowed-arena fold totals (host mirror counters, no device
+        # traffic).
+        out["window_spans"] = float(self.sketch_mirror.win_spans_total)
+        out["window_errors"] = float(self.sketch_mirror.win_errors_total)
         return out
 
     def stored_span_count(self) -> float:
