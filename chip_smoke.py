@@ -48,7 +48,31 @@ nvcc per source, started together), then
 6. runs each layout's stream at capacity 2^14 (same widths, window on)
    on the card and on the CPU (plain twins) and requires equal states
    and mirrors (and, paged, equal planner snapshots), then the same
-   spans pipelined on the card against serial on the CPU.
+   spans pipelined on the card against serial on the CPU;
+7. durability on the daemon's default store (the window on) at full
+   width: a write-ahead log with the daemon's defaults (group commit
+   every 0.05 s, 64 MB segments), 8 launches, ``checkpoint.save``, 8
+   more launches; then ``wal.recover`` restores a second store on the
+   card and replays the 8-record tail. Integer leaves and counters must
+   equal the uncrashed store's bitwise and the three moment leaves
+   within the stated tolerance, the recovered mirror its own device
+   leaves, and trace reads, name queries, dependency link counts and
+   the windowed reads the uncrashed store's answers; the flat histogram
+   launches once a replayed step and the arena halves launch too. It
+   prints the save, load and replay seconds by phase, the snapshot and
+   WAL bytes, the log's append latency and the peak device memory; one
+   more launch must journal as record 17;
+8. the paged layout at capacity 2^14: a pipelined store is saved while
+   a writer plans units past the gathered frontier; recovery on the
+   card must take those units' page claims from the snapshot's plan
+   memo, land the uncrashed planner snapshot and state, and serve
+   trace reads (the page gather) equal to the uncrashed store's;
+9. the crash harness's child on the card (``python -m
+   zipkin_tpu_torch.testing.crash --device cuda``), SIGKILLed once at
+   each of before-append, after-append, after-commit, mid-checkpoint and
+   mid-truncate; each recovery keeps every acked batch, equals an
+   uncrashed drive of the recovered prefix and leaves the first
+   unapplied batch absent.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -68,8 +92,11 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -127,6 +154,9 @@ class Scale:
             self.small_traces = 16
             self.window_launches, self.pipe_applies = 34, 4
             self.pipe_traces = 64
+            self.durability_launches = 3
+            self.dur_paged_log2, self.dur_paged_applies = 12, 8
+            self.dur_paged_traces = 128
             # Paged: 32 pages (a smaller pool cannot hold the known set),
             # a chain bound of 3 pages so a 400-span trace overflows it.
             self.paged_cap_log2, self.paged_launches = 12, 20
@@ -142,6 +172,12 @@ class Scale:
             self.window_launches = 46
             # 12 apply calls of 28,672 spans (the first untimed).
             self.pipe_applies, self.pipe_traces = 12, 4096
+            # 8 launches before the checkpoint, 8 after (the tail).
+            self.durability_launches = 8
+            # 12 apply calls of 3,584 spans into 2^14 slots: the page
+            # pool of 128 pages runs out and reclaims.
+            self.dur_paged_log2, self.dur_paged_applies = 14, 12
+            self.dur_paged_traces = 512
             # 39 launches = 4,472,832 spans > 2^22: the pool runs out.
             self.paged_cap_log2, self.paged_launches = 22, 39
             self.page_max_chain, self.n_big = 64, 32
@@ -1043,6 +1079,355 @@ def pipeline_path(torch, K, dev, scale, device):
     return result
 
 
+def _answers(store, tids, names):
+    """The reads the durability phases compare: whole traces (in
+    batches of 250), by-service lookups, dependency links with their
+    counts and, with the window on, the windowed reads."""
+    out = {"traces": [store.get_spans_by_trace_ids(tids[i:i + 250])
+                      for i in range(0, len(tids), 250)]}
+    end = 2**62
+    out["by_service"] = [store.get_trace_ids_by_name(n, None, end, 20)
+                         for n in names]
+    out["by_annotation"] = [store.get_trace_ids_by_annotation(
+        n, "http.uri", b"/api/widgets", end, 20) for n in names]
+    out["links"] = sorted((l.parent, l.child, l.duration_moments.count)
+                          for l in store.get_dependencies().links)
+    if store.config.window_enabled:
+        out["windowed_quantiles"] = [
+            store.windowed_quantiles(n, [0.5, 0.9, 0.99]) for n in names]
+        out["slo_burn"] = [store.slo_burn(n, windows_s=[300, 3600, 21600])
+                           for n in names]
+    return out
+
+
+def _compare_answers(want, got, what):
+    for k, v in want.items():
+        if got[k] != v:
+            fail(f"{what}: the recovered store's {k} answers differ")
+    if not any(want["by_service"]) or not want["links"]:
+        fail(f"{what}: the reads compared nothing")
+
+
+def durability_path(torch, K, dev, scale, device):
+    """Checkpoint + WAL at full width on the daemon's default store (the
+    window on): 8 launches journaled with the daemon's log defaults,
+    ``checkpoint.save``, 8 more, then ``wal.recover`` on the card into a
+    second store; the uncrashed store is the reference."""
+    from zipkin_tpu_torch import checkpoint, obs
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+    from zipkin_tpu_torch.wal import WriteAheadLog, recover
+
+    cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
+    free_card(torch, device)
+    work = tempfile.mkdtemp(prefix="zipkin-durability-")
+    wal_dir, ckpt = os.path.join(work, "wal"), os.path.join(work, "ckpt")
+    try:
+        store = TorchSpanStore(cfg, device=device.type,
+                               registry=obs.Registry())
+        gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
+                               n_span_names=scale.names, topology=True,
+                               seed=11)
+        mark = error_marker(store.dicts)
+        reg = obs.Registry()
+        # The daemon's log defaults (zipkin_tpu/main/example.py).
+        wal = WriteAheadLog(wal_dir, fsync="interval", interval_s=0.05,
+                            segment_bytes=64 << 20, registry=reg)
+        store.attach_wal(wal)
+        # The journal's host seconds a launch (encode_unit + deflate +
+        # the log's write), to split the journaled launch.
+        journal_s = []
+        journal = store._journal_group
+
+        def timed_journal(group):
+            t = time.perf_counter()
+            seq = journal(group)
+            journal_s.append(time.perf_counter() - t)
+            return seq
+
+        store._journal_group = timed_journal
+        n = scale.durability_launches
+        tids = []
+
+        def launch(i, into):
+            batch, _, ix = gen.next_batch(
+                scale.batch_traces, base_ts=WIN_BASE_US + i * WIN_STEP_US)
+            mark(batch)
+            tids.extend(int(t) for t in np.unique(
+                batch.trace_id[:batch.n_spans][::1009]))
+            into.write_batch(batch, ix)
+
+        t = time.perf_counter()
+        for i in range(n):
+            launch(i, store)
+        sync(torch, device)
+        first_s = time.perf_counter() - t
+        wal_before = wal.stats()
+        steps_at_save = store.counter_block()["batches"]
+        t = time.perf_counter()
+        save = checkpoint.save(store, ckpt)
+        save["total_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for i in range(n, 2 * n):
+            launch(i, store)
+        sync(torch, device)
+        second_s = time.perf_counter() - t
+        store.wal_sync()
+        append_p50, append_p99 = wal.h_append.quantile_values([0.5, 0.99])
+        wal_after = wal.stats()
+        wal.close()
+        store.wal = None
+        want_state = state_to_numpy(store.state)
+        names = [f"svc-{i:04d}" for i in range(min(10, scale.services))]
+
+        free_card(torch, device)
+        wal2 = WriteAheadLog(wal_dir, fsync="interval", interval_s=0.05,
+                             segment_bytes=64 << 20, registry=obs.Registry())
+        K.reset_launches()
+        t = time.perf_counter()
+        rec, stats = recover(ckpt, wal2, device=device.type)
+        sync(torch, device)
+        recover_s = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated()
+                if device.type == "cuda" else 0)
+        replayed_steps = rec.counter_block()["batches"] - steps_at_save
+        if (device.type == "cuda"
+                and K.LAUNCHES["flat_histogram"] != replayed_steps):
+            fail(f"durability path: flat_histogram launched "
+                 f"{K.LAUNCHES['flat_histogram']} times in "
+                 f"{replayed_steps} replayed steps")
+        if stats["replayed_records"] != n or stats["applied_seq"] != 2 * n:
+            fail(f"durability path: replayed {stats}, expected {n} records "
+                 f"up to seq {2 * n}")
+        _check_states_equal(want_state, state_to_numpy(rec.state),
+                            "durability path (recovered)")
+        if rec.counter_block() != store.counter_block():
+            fail("durability path: the recovered counter block differs")
+        rec.ensure_sketch_mirror()
+        mirror_equals_device(rec, "durability path (recovered)")
+        for a, b in zip(store.sketch_mirror.arrays(),
+                        rec.sketch_mirror.arrays()):
+            if not np.array_equal(a, b):
+                fail("durability path: the recovered mirror differs")
+        want = _answers(store, tids, names)
+        got = _answers(rec, tids, names)
+        _compare_answers(want, got, "durability path")
+        # One more launch journals after the replayed tail.
+        launch(2 * n, rec)
+        sync(torch, device)
+        launches = dict(K.LAUNCHES)
+        steps = replayed_steps + 1
+        check_launches(launches, ("flat_histogram", "arena_claim",
+                                  "arena_write"), device, "durability",
+                       steps)
+        if wal2.last_seq != 2 * n + 1:
+            fail(f"durability path: the launch after recovery journaled "
+                 f"as record {wal2.last_seq}, not {2 * n + 1}")
+        wal2.close()
+        load = stats["load"]
+        result = {
+            "launches_before_save": n, "launches_after_save": n,
+            "spans_per_launch": scale.batch_traces * 7,
+            "journaled_ingest_spans_per_s": (
+                2 * n * scale.batch_traces * 7 / (first_s + second_s)),
+            "journal_s_per_launch": float(np.mean(journal_s)),
+            "journal_share_of_launch": (sum(journal_s)
+                                        / (first_s + second_s)),
+            "save_s": save["total_s"],
+            "save_split_s": {k: save[k] for k in (
+                "gather_s", "crc_s", "compress_s", "rename_s")},
+            "snapshot_bytes_on_disk": save["bytes_on_disk"],
+            "wal_truncated_segments": save["wal_truncated_segments"],
+            "load_s": load["total_s"],
+            "load_split_s": {k: load[k] for k in (
+                "inflate_s", "crc_s", "h2d_s")},
+            "replay_s": stats["replay_s"],
+            "replayed_records": stats["replayed_records"],
+            "replayed_spans": stats["replayed_spans"],
+            "replayed_spans_per_s": (stats["replayed_spans"]
+                                     / stats["replay_s"]),
+            "recover_s": recover_s,
+            "wal_bytes_before_save": wal_before["wal_bytes"],
+            "wal_bytes_end": wal_after["wal_bytes"],
+            "wal_segments_end": wal_after["wal_segments"],
+            "wal_append_p50_s": append_p50, "wal_append_p99_s": append_p99,
+            "recover_peak_device_bytes": peak,
+            "traces_compared": len(tids),
+            "links_compared": len(want["links"]),
+            "kernel_launches": launches, "ingest_steps": steps,
+        }
+        log("durability path result: " + json.dumps(result))
+        del store, rec
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def durability_paged(torch, K, dev, scale, device):
+    """The paged layout at capacity 2^14, pipelined: the checkpoint is
+    cut while a writer plans units past the gathered frontier, so its
+    planner memo holds their page claims; recovery on the card must
+    take them from the memo, land the uncrashed planner and state, and
+    serve the page-gather reads the uncrashed store serves."""
+    from zipkin_tpu_torch import checkpoint, obs
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.wal import WriteAheadLog, replay_into
+
+    cfg = full_config(dev, scale.dur_paged_log2, scale.services,
+                      **paged_layout(scale))
+    applies = span_applies(scale, scale.dur_paged_applies,
+                           scale.dur_paged_traces, WIN_STEP_US, seed=13)
+    free_card(torch, device)
+    work = tempfile.mkdtemp(prefix="zipkin-durability-paged-")
+    wal_dir, ckpt = os.path.join(work, "wal"), os.path.join(work, "ckpt")
+    half = len(applies) // 2
+    try:
+        store = TorchSpanStore(cfg, device=device.type,
+                               registry=obs.Registry())
+        wal = WriteAheadLog(wal_dir, fsync="off", registry=obs.Registry())
+        store.attach_wal(wal)
+        planner = store._planner
+        with store.pipelined(depth=4):
+            for spans in applies[:half]:
+                store.apply(spans)
+            snapshot = planner.snapshot
+
+            def racing_snapshot():
+                # A writer lands between the gather and the planner cut.
+                store.apply(applies[half])
+                return snapshot()
+
+            planner.snapshot = racing_snapshot
+            t = time.perf_counter()
+            save = checkpoint.save(store, ckpt)
+            save_s = time.perf_counter() - t
+            planner.snapshot = snapshot
+            for spans in applies[half + 1:]:
+                store.apply(spans)
+        sync(torch, device)
+        wal.sync()
+        wal.close()
+        store.wal = None
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            meta = json.load(f)
+        ahead = meta["paged"]["last_seq"] - meta["clocks"]["wal_applied"]
+        if ahead <= 0:
+            fail("durability paged: no unit was planned past the "
+                 "checkpoint's frontier")
+        if planner.stats()["page_reclaims"] <= 0:
+            fail("durability paged: the page pool never reclaimed")
+        # recover()'s two steps, with the replay's planner calls counted:
+        # a unit the snapshot planned must take its recorded plan.
+        load_stats = {}
+        rec = checkpoint.load(ckpt, device=device.type, stats=load_stats)
+        memo = []
+        plan_unit = rec._planner.plan_unit
+
+        def counting(chunk_tids, wal_seq=None):
+            if wal_seq is not None and wal_seq <= rec._planner.last_seq:
+                memo.append(wal_seq)
+            return plan_unit(chunk_tids, wal_seq=wal_seq)
+
+        rec._planner.plan_unit = counting
+        wal2 = WriteAheadLog(wal_dir, fsync="off", registry=obs.Registry())
+        rec.attach_wal(wal2)
+        stats = replay_into(rec, wal2)
+        wal2.close()
+        rec._planner.plan_unit = plan_unit
+        if len(memo) != ahead:
+            fail(f"durability paged: {len(memo)} replayed units took the "
+                 f"recorded plan, {ahead} were planned ahead")
+        if rec._planner.snapshot() != planner.snapshot():
+            fail("durability paged: the recovered planner differs")
+        _check_states_equal(state_to_numpy(store.state),
+                            state_to_numpy(rec.state),
+                            "durability paged (recovered)")
+        tids = sorted({s.trace_id for spans in applies[-3:]
+                       for s in spans[::97]})
+        K.reset_launches()
+        got = [rec.get_spans_by_trace_ids(tids[i:i + 250])
+               for i in range(0, len(tids), 250)]
+        sync(torch, device)
+        launches = dict(K.LAUNCHES)
+        want = [store.get_spans_by_trace_ids(tids[i:i + 250])
+                for i in range(0, len(tids), 250)]
+        if got != want or not any(want):
+            fail("durability paged: recovered trace reads differ")
+        if device.type == "cuda" and launches["paged_page_gather"] <= 0:
+            fail("durability paged: the reads did not launch the page "
+                 "gather")
+        result = {
+            "capacity": cfg.capacity, "pages": cfg.n_pages,
+            "applies": len(applies), "units_planned_ahead": ahead,
+            "replayed_from_memo": len(memo),
+            "replayed_records": stats["replayed_records"],
+            "page_reclaims": planner.stats()["page_reclaims"],
+            "save_s": save_s, "save_split_s": {k: save[k] for k in (
+                "gather_s", "crc_s", "compress_s", "rename_s")},
+            "load_s": load_stats["total_s"],
+            "replay_s": stats["replay_s"],
+            "traces_read": len(tids), "read_launches": launches,
+        }
+        log("durability paged result: " + json.dumps(result))
+        del store, rec
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# (point, hit, batches, checkpoint after these batches, segment bytes,
+#  applied, acked): the cases of tests/test_crash.py.
+KILL_CASES = (
+    ("before-append", 5, 8, (3,), 64 << 20, 4, 4),
+    ("after-append", 4, 6, (2,), 64 << 20, 4, 3),
+    ("after-commit", 5, 8, (3,), 64 << 20, 5, 4),
+    ("mid-checkpoint", 2, 10, (4, 8), 64 << 20, 8, 8),
+    ("mid-truncate", 2, 8, (6,), 1 << 12, 6, 6),
+)
+
+
+def crash_kill_points(torch, device):
+    """The crash child on the card, SIGKILLed at each kill point; each
+    recovery on the card must keep the acked batches, equal an
+    uncrashed drive of the recovered prefix (integer leaves bitwise, the
+    moments within the stated tolerance) and leave the first unapplied
+    batch absent."""
+    from zipkin_tpu_torch.testing.crash import run_crash_child, \
+        verify_recovery
+
+    out = {}
+    for point, hit, batches, ckpt_at, seg, applied, acked in KILL_CASES:
+        wd = tempfile.mkdtemp(prefix=f"zipkin-crash-{point}-")
+        try:
+            t = time.perf_counter()
+            proc = run_crash_child(wd, point=point, hit=hit,
+                                   batches=batches, ckpt_at=ckpt_at,
+                                   segment_bytes=seg, device=device.type,
+                                   timeout=300)
+            child_s = time.perf_counter() - t
+            if proc.returncode != -signal.SIGKILL:
+                fail(f"crash child at {point}:{hit} exited "
+                     f"{proc.returncode}, not by SIGKILL\n"
+                     f"{proc.stderr[-2000:]}")
+            t = time.perf_counter()
+            info = verify_recovery(wd, total_batches=batches,
+                                   device=device.type)
+            verify_s = time.perf_counter() - t
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+        if (info["applied"], info["acked"]) != (applied, acked):
+            fail(f"kill point {point}: applied/acked {info['applied']}/"
+                 f"{info['acked']}, expected {applied}/{acked}")
+        out[point] = {"hit": hit, "batches": batches,
+                      "applied": info["applied"], "acked": info["acked"],
+                      "replayed_records": info["replayed_records"],
+                      "child_s": child_s, "verify_s": verify_s}
+    log("crash kill points result: " + json.dumps(out))
+    return out
+
+
 def hist_phase(torch, K, rec, n_sites: int = 7, alone=None):
     """K1 on a path's first step: the fused call of its ``n_sites``
     sites (seven; eight on the window path) against the twin, bitwise,
@@ -1557,15 +1942,24 @@ def main() -> int:
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
     phase("paged_parity", parity_phase, torch, dev, scale, args.rehearse,
           True)
+    durable = phase("durability_path", durability_path, torch, K, dev,
+                    scale, device)
+    dpaged = phase("durability_paged", durability_paged, torch, K, dev,
+                   scale, device)
+    phase("crash_kill_points", crash_kill_points, torch, device)
     big = max(hist_rows, key=lambda r: r["cells"])
     by_path = {"ring": result["kernel_launches"],
                "paged": presult["kernel_launches"],
                "window": wresult["kernel_launches"],
-               "pipeline": piped["kernel_launches"]}
+               "pipeline": piped["kernel_launches"],
+               "durability": durable["kernel_launches"],
+               "durability_paged": dpaged["read_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
-                     "pipeline": piped["ingest_steps"]}
+                     "pipeline": piped["ingest_steps"],
+                     "durability": durable["ingest_steps"],
+                     "durability_paged": 0}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",

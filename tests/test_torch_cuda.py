@@ -473,3 +473,65 @@ def test_cuda_pipeline_commit_failure_surfaces_on_drain(cuda, monkeypatch):
     assert 0 < failed[0] <= len(applies[0])
     assert store.counter_block()["spans_seen"] == sum(
         len(a) for a in applies) - failed[0]
+
+
+# -- durability on the card -------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_recovery_matches_cpu_store(cuda, tmp_path):
+    """A card store recovered from checkpoint plus WAL tail equals a CPU
+    store driven with the same spans: integer leaves bitwise, moments
+    by stated tolerance 2, mirrors equal; K1 once a replayed step."""
+    from zipkin_tpu_torch import checkpoint, obs
+    from zipkin_tpu_torch.wal import WriteAheadLog, recover
+
+    applies = _window_applies()
+    cpu = _window_store(device="cpu")
+    for spans in applies:
+        cpu.apply(spans)
+    card = _window_store(device="cuda")
+    wal = WriteAheadLog(str(tmp_path / "wal"), fsync="off",
+                        registry=obs.Registry())
+    card.attach_wal(wal)
+    for spans in applies[:4]:
+        card.apply(spans)
+    checkpoint.save(card, str(tmp_path / "ckpt"))
+    steps_at_save = card.counter_block()["batches"]
+    for spans in applies[4:]:
+        card.apply(spans)
+    wal.sync()
+    wal.close()
+    wal2 = WriteAheadLog(str(tmp_path / "wal"), fsync="off",
+                         registry=obs.Registry())
+    before = K.LAUNCHES["flat_histogram"]
+    rec, stats = recover(str(tmp_path / "ckpt"), wal2, device="cuda")
+    torch.cuda.synchronize()
+    assert stats["replayed_records"] > 0
+    replayed = rec.counter_block()["batches"] - steps_at_save
+    assert K.LAUNCHES["flat_histogram"] - before == replayed
+    rec.ensure_sketch_mirror()
+    _assert_same_store(cpu, rec)
+    wal2.close()
+
+
+@pytest.mark.cuda
+def test_cuda_snapshots_cross_devices(cuda, tmp_path):
+    """A card snapshot loads on the CPU and a CPU snapshot on the card,
+    every leaf bitwise."""
+    from zipkin_tpu_torch import checkpoint
+    from zipkin_tpu_torch.testing.crash import state_mismatches
+
+    applies = _window_applies(n_applies=4)
+    for src_dev, dst_dev in (("cuda", "cpu"), ("cpu", "cuda")):
+        src = _window_store(device=src_dev)
+        for spans in applies:
+            src.apply(spans)
+        path = str(tmp_path / f"{src_dev}-to-{dst_dev}")
+        checkpoint.save(src, path)
+        got = checkpoint.load(path, device=dst_dev)
+        assert got.state.device.type == dst_dev
+        assert not state_mismatches(src.state, got.state)
+        tids = sorted({s.trace_id for s in applies[-1]})[:20]
+        assert got.get_spans_by_trace_ids(tids) == \
+            src.get_spans_by_trace_ids(tids)

@@ -48,6 +48,9 @@ def test_package_imports_without_jax():
             "zipkin_tpu_torch.store.convert, zipkin_tpu_torch.tracegen, "
             "zipkin_tpu_torch.store.pipeline, zipkin_tpu_torch.store.mirror, "
             "zipkin_tpu_torch.store.analytics, "
-            "zipkin_tpu_torch.aggregate.windows, zipkin_tpu_torch.obs")
+            "zipkin_tpu_torch.aggregate.windows, zipkin_tpu_torch.obs, "
+            "zipkin_tpu_torch.checkpoint, zipkin_tpu_torch.wal, "
+            "zipkin_tpu_torch.wal.log, zipkin_tpu_torch.wal.record, "
+            "zipkin_tpu_torch.wal.recovery, zipkin_tpu_torch.testing.crash")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

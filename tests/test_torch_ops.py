@@ -65,6 +65,9 @@ def test_mix_keys64(n_keys):
     np.testing.assert_array_equal(want, got)
     np.testing.assert_array_equal(
         _u64_as_i64(jh.np_mix_keys64(cols)), got)
+    # The port's host mirror (checkpoint migrations) is the same word.
+    np.testing.assert_array_equal(
+        _u64_as_i64(th.np_mix_keys64(cols)), got)
 
 
 def test_hll_and_cms_indices():

@@ -8,8 +8,9 @@ port's, states equal after every step (``assert_states_equal``'s rule)
 through several pool laps with reclaims. Reads: ``_paged_gather_impl``
 (both JAX gather paths, the Pallas one in interpret mode) against the
 port's ``gather_paged_trace_rows``, the page-gather twin against the
-Pallas kernel, every read API against ``TpuSpanStore`` past wrap, and
-the SPI conformance suite on a paged port store.
+Pallas kernel, every read API against ``TpuSpanStore`` past wrap, the
+SPI conformance suite on a paged port store, and rev-18 snapshots of
+the driven stores loaded across packages (state and planner).
 """
 
 import numpy as np
@@ -30,6 +31,7 @@ from test_torch_store import (  # noqa: E402
     jax_leaves,
     to_port,
 )
+from zipkin_tpu import checkpoint as ref_checkpoint  # noqa: E402
 from zipkin_tpu.columnar.encode import SpanCodec  # noqa: E402
 from zipkin_tpu.models.span import (  # noqa: E402
     Annotation,
@@ -47,6 +49,7 @@ from zipkin_tpu.testing.conformance import (  # noqa: E402
     run_conformance_test,
 )
 from zipkin_tpu.tracegen import generate_traces  # noqa: E402
+from zipkin_tpu_torch import checkpoint  # noqa: E402
 from zipkin_tpu_torch.ops import kernels as K  # noqa: E402
 from zipkin_tpu_torch.store import device as tdev  # noqa: E402
 from zipkin_tpu_torch.store import paged as tpaged  # noqa: E402
@@ -358,3 +361,36 @@ def test_paged_store_reads_match_reference(driven):
 def test_paged_port_conformance(name):
     run_conformance_test(name, lambda: _RefSpanAdapter(TorchSpanStore(
         tdev.StoreConfig(**SMALL, **PAGED), device="cpu")))
+
+
+def test_paged_snapshots_cross_packages(driven, tmp_path):
+    """A JAX paged snapshot loads into the port and a port one into JAX:
+    every leaf bitwise, the planner snapshot (allocator, page table,
+    plan memo) equal, the reads equal, and post-restore writes plan the
+    same claims on both sides."""
+    ref, port, traces, _ = driven
+    raw = port._s
+    ref_checkpoint.save(ref, str(tmp_path / "j"))
+    checkpoint.save(raw, str(tmp_path / "p"))
+    from_ref = checkpoint.load(str(tmp_path / "j"), device="cpu")
+    back = ref_checkpoint.load(str(tmp_path / "p"))
+    for a, b in ((jax_leaves(ref.state), state_to_numpy(from_ref.state)),
+                 (state_to_numpy(raw.state), jax_leaves(back.state))):
+        for k, x in a.items():
+            if k == "counters":
+                assert {c: int(v) for c, v in x.items()} == {
+                    c: int(v) for c, v in b[k].items()}
+            else:
+                assert np.array_equal(np.asarray(x), np.asarray(b[k])), k
+    assert from_ref._planner.snapshot() == ref._planner.snapshot()
+    assert back._planner.snapshot() == raw._planner.snapshot()
+    tids = [t[0].trace_id for t in traces[-40:]]
+    got = _RefSpanAdapter(from_ref)
+    assert got.get_spans_by_trace_ids(tids) == ref.get_spans_by_trace_ids(
+        tids)
+    tail = [s for t in _mixed_traces(29, 30, 2) for s in t]
+    got.apply(tail)
+    back.apply(tail)
+    assert_states_equal(jax_leaves(back.state),
+                        state_to_numpy(from_ref.state), "after writes")
+    assert from_ref._planner.snapshot() == back._planner.snapshot()

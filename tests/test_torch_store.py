@@ -355,3 +355,111 @@ def test_entry_points_refuse_missing_cuda():
         TorchSpanStore(tdev.StoreConfig(**SMALL))
     with pytest.raises(RuntimeError, match="CUDA"):
         tdev.init_state(tdev.StoreConfig(**SMALL))
+
+
+# ---------------------------------------------------------------------------
+# Drives off the main comparison: dictionary overflow, no index, a tiny
+# ring, time-bounded scans and pinned traces
+# ---------------------------------------------------------------------------
+
+WINDOW_KW = dict(window_seconds=60, window_buckets=8)
+PIN_TTL_S = 30 * 24 * 3600.0
+
+
+def _drive_both(cfg: dict, traces, chunk: int = 150):
+    ref = TpuSpanStore(dev.StoreConfig(**cfg))
+    port = TorchSpanStore(tdev.StoreConfig(**cfg), device="cpu")
+    spans = [s for t in traces for s in t]
+    for i in range(0, len(spans), chunk):
+        ref.apply(spans[i:i + chunk])
+        port.apply(_convert(spans[i:i + chunk], PORT))
+    return ref, port
+
+
+def pinned_stores(n_pinned: int = 4):
+    """The reference and port stores of the pinned-traces drive: a few
+    traces pinned (``set_time_to_live`` past the default), then a flood
+    that laps the ring twice, so the pinned traces live only in the
+    pin banks. Returns (reference, port, traces, pinned trace ids)."""
+    cfg = dict(SMALL, capacity=1 << 9, ann_capacity=1 << 11,
+               bann_capacity=1 << 10)
+    rng = np.random.default_rng(21)
+    traces = generate_traces(n_traces=60, max_depth=3, n_services=8,
+                             rng=rng)
+    ref, port = _drive_both(cfg, traces)
+    pinned = [t[0].trace_id for t in traces[:n_pinned]]
+    for tid in pinned:
+        ref.set_time_to_live(tid, PIN_TTL_S)
+        port.set_time_to_live(tid, PIN_TTL_S)
+    flood = generate_traces(n_traces=400, max_depth=3, n_services=8,
+                            rng=rng, base_ts=2_000_000_000_000)
+    for i in range(0, len(flood), 50):
+        spans = [s for t in flood[i:i + 50] for s in t]
+        ref.apply(spans)
+        port.apply(_convert(spans, PORT))
+    return ref, port, traces, pinned
+
+
+def _bounded_reads(ref, port, end_ts: int):
+    for svc in sorted(ref.get_all_service_names()):
+        for force in (False, True):
+            for name in [None] + sorted(ref.get_span_names(svc))[:2]:
+                assert port.get_trace_ids_by_name(
+                    svc, name, end_ts, 10, force_scan=force) == \
+                    ref.get_trace_ids_by_name(svc, name, end_ts, 10,
+                                              force_scan=force)
+            for ann, val in (("some custom annotation", None),
+                             ("http.uri", b"/api/widgets")):
+                assert port.get_trace_ids_by_annotation(
+                    svc, ann, val, end_ts, 10, force_scan=force) == \
+                    ref.get_trace_ids_by_annotation(
+                        svc, ann, val, end_ts, 10, force_scan=force)
+
+
+@pytest.mark.parametrize("case", ["dict_overflow", "dict_overflow_window",
+                                  "no_index", "capacity_2e9",
+                                  "end_ts_force_scan", "pinned"])
+def test_store_reads_match_reference_off_main_drive(case):
+    """Each drive leaves the main comparison's path somewhere: services
+    past ``max_services`` (scan-only routing, overflow catalogs), the
+    index off, a 2^9 ring (exact gid wars), time-bounded queries on the
+    scans, and traces that survive eviction only in their pin banks.
+    Every read answer and every counter equals the reference's."""
+    rng = np.random.default_rng(31)
+    if case == "pinned":
+        ref, raw, traces, pinned = pinned_stores()
+        port = _RefSpanAdapter(raw)
+        assert port.counter_block()["ring_laps"] >= 2
+        got = port.get_spans_by_trace_ids(pinned)
+        assert got == ref.get_spans_by_trace_ids(pinned)
+        assert len(got) == len(pinned)
+        assert port.traces_exist(pinned) == ref.traces_exist(pinned)
+        assert (port.get_traces_duration(pinned)
+                == ref.get_traces_duration(pinned))
+        assert port.get_time_to_live(pinned[0]) == PIN_TTL_S
+        assert port.counter_block() == ref.counter_block()
+        return
+    cfg = dict(SMALL)
+    n_services = 12
+    if case.startswith("dict_overflow"):
+        cfg["max_services"] = 8
+        n_services = 20
+        if case.endswith("window"):
+            cfg.update(WINDOW_KW)
+    elif case == "no_index":
+        cfg["use_index"] = False
+    elif case == "capacity_2e9":
+        cfg.update(capacity=1 << 9, ann_capacity=1 << 11,
+                   bann_capacity=1 << 10)
+    traces = generate_traces(n_traces=250, max_depth=3,
+                             n_services=n_services, rng=rng)
+    ref, raw = _drive_both(cfg, traces)
+    port = _RefSpanAdapter(raw)
+    if case == "end_ts_force_scan":
+        ts = sorted(s.first_timestamp for t in traces for s in t
+                    if s.first_timestamp)
+        for end_ts in (ts[len(ts) // 3], ts[2 * len(ts) // 3]):
+            _bounded_reads(ref, port, end_ts)
+    if case.startswith("dict_overflow"):
+        assert len(raw.dicts.services) > cfg["max_services"]
+    assert_reads_match(ref, port, traces)

@@ -89,6 +89,23 @@ def mix_keys64(keys) -> torch.Tensor:
     return acc ^ srl(acc, 29)
 
 
+
+def np_mix_keys64(keys) -> np.ndarray:
+    """Host (numpy) mirror of mix_keys64, as uint64 — bit-identical, so
+    host-side migrations can seed device hash structures (checkpoint.py)
+    and the device probes find the keys."""
+    arrs = [np.asarray(k, np.int64).astype(np.uint64) for k in keys]
+    acc = np.full(arrs[0].shape, 0x243F6A8885A308D3, np.uint64)
+    with np.errstate(over="ignore"):
+        for a in arrs:
+            acc = (acc ^ a) * np.uint64(0x9E3779B97F4A7C15)
+            acc ^= acc >> np.uint64(29)
+        acc *= np.uint64(0xBF58476D1CE4E5B9)
+        acc ^= acc >> np.uint64(32)
+        acc *= np.uint64(0x94D049BB133111EB)
+        acc ^= acc >> np.uint64(29)
+    return acc
+
 def clz32(x: torch.Tensor) -> torch.Tensor:
     """Count leading zeros of uint32 words held in int64 (int32 out)."""
     x = x & M32

@@ -302,6 +302,9 @@ class StoreState:
 
 
 _FP_EMPTY = 0x7FFFFFFF
+# Tombstone fingerprint: the i32 min-war never overwrites it and _fp31
+# never produces it, so a tombstoned key table claims nothing.
+_FP_TOMB = -0x80000000
 _KEY_PROBES = 3
 _TAB_PROBES = 4
 _SVC_MASK = 0x7FFF
@@ -745,6 +748,53 @@ def _tab_insert(tab, key48, svc, valid):
     flat.scatter_reduce_(0, slots[-1][steal], packed[steal], "amin")
     return tab
 
+
+
+def rebuild_span_tab(state: StoreState) -> StoreState:
+    """(Re)insert every live resident span into the hash table, in
+    place. Used when restoring pre-revision-4 snapshots (whose schema
+    had no table), so children arriving after the restore still find
+    checkpointed parents. The min-insert is order-free, so the table
+    equals the reference's for every live row of the ring."""
+    live = state.row_gid >= 0
+    key = _mix48(state.trace_id, state.span_id)
+    _tab_insert(state.span_tab, key, state.service_id, live)
+    return state
+
+
+def poison_index_trust(state: StoreState) -> StoreState:
+    """Mark every index bucket permanently untrusted (cursor past depth,
+    watermark at +inf), in place, forcing all reads through the exact
+    scan kernels. Used when restoring snapshots that predate the index
+    families: empty buckets with zero cursors would otherwise claim
+    completeness and hide every restored span from the fast paths. New
+    writes still append, but trust never returns for a poisoned bucket
+    — the pre-index behaviour the snapshot was taken under."""
+    state.cand_pos.fill_(1 << 60)
+    state.cand_wm.fill_(I64_MAX)
+    return state
+
+
+def poison_ann_trust(state: StoreState) -> StoreState:
+    """Trust reset, in place, for snapshots predating revision 7, which
+    added both of these:
+
+    - ``ann_poison``: any restored span might have 3+ distinct
+      annotation hosts, so every service is stamped with the current
+      write_pos — the annotation fast paths distrust their buckets
+      until the ring has turned over, then self-heal.
+    - ``key_tab``: a post-restore claim cannot certify that a key was
+      never displaced before the restore, so the table is tombstoned
+      (claims always fail, the bucket gates serve), ``key_wm`` pinned
+      at +inf and the drop counter forced >= 1, which keeps the
+      negative-lookup gate off."""
+    wp = state.write_pos.to(torch.int64)
+    state.ann_poison.copy_(wp.expand_as(state.ann_poison))
+    state.key_tab.fill_(_FP_TOMB)
+    state.key_wm.fill_(I64_MAX)
+    drops = state.counters["key_claim_drops"]
+    drops.copy_(torch.clamp(drops, min=1))
+    return state
 
 # ---------------------------------------------------------------------------
 # Index FIFO ranks

@@ -54,7 +54,11 @@ class IngestUnit(NamedTuple):
     """One committed launch's worth of work: a padded numpy DeviceBatch
     (stacked along a leading axis when ``chained``) plus the host
     bookkeeping the commit stage needs. ``n_parts`` is the number of
-    chunker parts inside (the sweep-cadence increment). ``sketch`` is
+    chunker parts inside (the sweep-cadence increment). ``wal_seq`` is
+    the unit's write-ahead-log sequence (None when no WAL is attached);
+    the commit advances the store's applied frontier to it under the
+    state lock, in the same hold as the step, so a checkpoint cut is
+    always consistent with its manifest sequence. ``sketch`` is
     the unit's host sketch-mirror delta (``store/mirror.py``), folded
     in by the commit under the state lock. ``staged`` is set by stage
     2: (the unit's per-step device batches, the device buffer they are
@@ -67,6 +71,7 @@ class IngestUnit(NamedTuple):
     n_banns: int
     n_parts: int
     chained: bool
+    wal_seq: Optional[int] = None
     sketch: Optional[object] = None
     staged: Optional[tuple] = None
 

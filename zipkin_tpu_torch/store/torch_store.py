@@ -19,9 +19,18 @@ pipeline (``start_pipeline``, ``store/pipeline.py``) cut identical
 launch units through them. Every commit folds its unit's host sketch
 delta into ``sketch_mirror`` before the frontier bump; the windowed
 reads (``WindowedAnalytics``: ``windowed_quantiles``, ``slo_burn``,
-``latency_heatmap``) answer from it. Not ported yet (later slices): WAL,
-eviction capture and cold tier, the query engine, checkpoints, the
-native thrift fast path, sharding and the daemon.
+``latency_heatmap``) answer from it.
+
+Durability: with a write-ahead log attached (``attach_wal``), every
+planned launch group is journaled before its commit (the kill points
+``before-append``, ``after-append`` and ``after-commit`` sit where the
+reference has them), and ``_commit_unit`` stamps the applied sequence
+with the host clocks under the state lock, so ``checkpoint.save`` cuts
+a state, clocks and sequence that belong together and
+``wal.recover`` replays the tail through the same commit body. Not
+ported yet (later slices): eviction capture and the cold tier (the
+capture clocks stay 0, as on a reference store without a sink), the
+query engine, the native thrift fast path, sharding and the daemon.
 """
 
 from __future__ import annotations
@@ -74,6 +83,12 @@ from zipkin_tpu_torch.store.pipeline import (
     IngestPipeline,
     IngestUnit,
     unit_batches,
+)
+from zipkin_tpu_torch.testing.crash import kill_point
+from zipkin_tpu_torch.wal.record import (
+    dict_sizes,
+    dump_dict_deltas,
+    encode_unit,
 )
 
 _BATCH_MIN = 64
@@ -332,6 +347,25 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         self._wp = 0
         self._archived = 0
         self._batches_since_sweep = 0
+        # Host mirrors of the side rings' write cursors, and the
+        # eviction-capture clocks. Nothing captures yet (the cold-tier
+        # slice), so the capture clocks stay 0, as on a reference store
+        # without an eviction sink; checkpoints carry them all.
+        self._awp = 0
+        self._bwp = 0
+        self._cap_upto = 0
+        self._cap_a = 0
+        self._cap_b = 0
+        self._sealed_upto = 0
+        # Durable write-ahead log (wal/): when attached, every planned
+        # launch group is journaled (stage-1 output + dictionary delta)
+        # BEFORE its commit; _wal_applied is the highest sequence whose
+        # unit has committed (stamped under _state_lock with the step,
+        # so a checkpoint cut reads a sequence consistent with the
+        # state), _wal_marks the dictionary sizes of the last record.
+        self.wal = None
+        self._wal_applied = 0
+        self._wal_marks = None
         self._step_seq = 0
         self._read_epoch = 0
         self._cblock_memo = None
@@ -368,9 +402,9 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
             for span in spans:
                 self.ttls.setdefault(to_signed64(span.trace_id), 1.0)
             if self.pins:
-                self._read_epoch += 1
+                self._bump_read_epoch()
             self.pins.note_write(to_signed64, spans)
-            prune_ttls(self.ttls, self.MAX_TTL_ENTRIES)
+            self._prune_ttls()
             if self._pipeline is not None:
                 self._apply_pipelined(spans)
                 return
@@ -413,11 +447,30 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
 
     def _feed_units(self, pipe: IngestPipeline, parts) -> float:
         """Pad and enqueue one flushed part list as launch units; returns
-        the seconds spent blocked on the pipeline's backpressure."""
+        the seconds spent blocked on the pipeline's backpressure. With a
+        WAL attached each group is journaled here, on the stage-1
+        caller thread under the encode lock, so append order equals
+        feed order equals commit order."""
         stalled = 0.0
         for group in self._plan_units(parts):
-            stalled += pipe.feed(self._pad_unit(group))
+            stalled += pipe.feed(self._journaled_unit(group))
         return stalled
+
+    def _journaled_unit(self, group) -> IngestUnit:
+        """Journal one planned group (when a WAL is attached), then pad
+        it into its launch unit carrying the record's sequence. Journal
+        BEFORE padding: a paged store's planner keys its claim plan to
+        the sequence inside _pad_unit, so a checkpoint's planner
+        snapshot never holds a plan without its seq."""
+        seq = self._journal_group(group) if self.wal is not None else None
+        unit = self._pad_unit(group, wal_seq=seq)
+        if seq is None:
+            return unit
+        kill_point("after-append")
+        return unit._replace(wal_seq=seq)
+
+    def _prune_ttls(self) -> None:
+        prune_ttls(self.ttls, self.MAX_TTL_ENTRIES)
 
     def _chunk_by_trace(self, spans: Sequence[Span]):
         chunk_size = self._max_chunk_spans()
@@ -491,6 +544,28 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
             batch, **{c: getattr(batch, c)[:cap] for c in cols})
 
     @staticmethod
+    def _select_batch(batch: SpanBatch, keep: np.ndarray) -> SpanBatch:
+        """Columnar selection of arbitrary span rows (bool mask) with
+        their annotation rows, span indices rebased."""
+        idx = np.flatnonzero(keep)
+        remap = np.full(batch.n_spans, -1, np.int32)
+        remap[idx] = np.arange(idx.size, dtype=np.int32)
+        a_sel = (keep[batch.ann_span_idx] if batch.n_annotations
+                 else np.zeros(0, bool))
+        b_sel = (keep[batch.bann_span_idx] if batch.n_binary
+                 else np.zeros(0, bool))
+        out = SpanBatch.empty(idx.size, int(a_sel.sum()), int(b_sel.sum()))
+        for col in _SPAN_COLS:
+            setattr(out, col, getattr(batch, col)[idx])
+        out.ann_span_idx = remap[batch.ann_span_idx[a_sel]]
+        for col in _ANN_COLS:
+            setattr(out, col, getattr(batch, col)[a_sel])
+        out.bann_span_idx = remap[batch.bann_span_idx[b_sel]]
+        for col in _BANN_COLS:
+            setattr(out, col, getattr(batch, col)[b_sel])
+        return out
+
+    @staticmethod
     def _slice_batch(batch: SpanBatch, start: int, stop: int) -> SpanBatch:
         a_sel = (batch.ann_span_idx >= start) & (batch.ann_span_idx < stop)
         b_sel = (batch.bann_span_idx >= start) & (batch.bann_span_idx < stop)
@@ -534,7 +609,15 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
             self._commit_group(group)
 
     def _commit_group(self, group) -> None:
-        self._commit_unit(self._pad_unit(group))
+        """Journal (when a WAL is attached) then commit one planned
+        launch group — the serial path's ack-after-append point: by the
+        time the step runs, the group's record is in the log, so a crash
+        between append and commit replays the group instead of losing
+        it."""
+        if self.wal is not None:
+            kill_point("before-append")
+        self._commit_unit(self._journaled_unit(group))
+        kill_point("after-commit")
 
     def _plan_units(self, parts):
         """CHAIN_SIZES greedy grouping of chunker parts into launch
@@ -562,13 +645,16 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
                 yield parts[i:i + 1]
             i += took
 
-    def _pad_unit(self, group) -> IngestUnit:
+    def _pad_unit(self, group, wal_seq: Optional[int] = None
+                  ) -> IngestUnit:
         """Pad one planned group to its pow2 buckets (host numpy);
         chained groups pad every chunk to the group max and stack. The
         unit carries its sketch-mirror delta and, with the window on,
         each span's error bit (a pure function of the batch and the
         dictionaries). On a paged store the planner plans the unit's
-        slot and gid claims here, in feed order; every chunk's reclaim
+        slot and gid claims here, in feed order, keyed to ``wal_seq``;
+        WAL replay passes the seq of a unit the checkpoint already
+        planned and gets the recorded plan back. Every chunk's reclaim
         list pads to one pow2 length across the unit."""
         sketch = self.sketch_mirror.delta_of(group)
         if self.config.window_enabled:
@@ -583,7 +669,8 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         pad_rc = 1
         if self._planner is not None:
             plan = self._planner.plan_unit(
-                [np.asarray(b.trace_id) for b, _, _ in group])
+                [np.asarray(b.trace_id) for b, _, _ in group],
+                wal_seq=wal_seq)
             chunks = plan.chunks
             pad_rc = _next_pow2(max(
                 [1] + [len(cp.reclaim_pages) for cp in chunks]))
@@ -644,7 +731,14 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
             # already sees commit F's delta.
             if unit.sketch is not None:
                 self.sketch_mirror.apply(unit.sketch)
+            # The host clocks and the applied WAL sequence advance in the
+            # same hold as the step: a checkpoint's gather (under this
+            # lock) pairs the device cut with exactly these clocks.
             self._wp += unit.n_spans
+            self._awp += unit.n_anns
+            self._bwp += unit.n_banns
+            if unit.wal_seq is not None:
+                self._wal_applied = unit.wal_seq
             self._step_seq += 1
             self._batches_since_sweep += unit.n_parts
             if self._batches_since_sweep >= self.SWEEP_EVERY:
@@ -677,6 +771,68 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
             self._step_seq += 1
             self._archived = self._wp
             self._batches_since_sweep = 0
+
+    def adopt_state(self, state: dev.StoreState, spans_written: int,
+                    archived: Optional[int] = None) -> None:
+        """Adopt a device state produced outside the store's write path
+        (for example a benchmark driving ``dev.ingest_step`` directly)
+        and re-seed the host clocks: ``spans_written`` is the state's
+        write_pos (it seeds the archive cadence), ``archived`` the span
+        watermark of the last bucket close (default: "just rotated").
+        The sweep clock is marked dirty, so the first dependency read
+        runs a pending sweep; the sketch mirror goes cold and resyncs
+        from the device on its next read; a paged store rebuilds its
+        page table from the adopted columns. The reference's seal
+        barrier comes with the capture slice."""
+        self.drain_pipeline()
+        self.ensure_writable()
+        with self._lock, self._state_lock:
+            self.state = state
+            self._step_seq += 1
+            self._wp = int(spans_written)
+            self._archived = self._wp if archived is None else int(archived)
+            self._batches_since_sweep = 1
+            # The adopted history predates any capture: re-seed the
+            # capture clocks so only later evictions would be captured.
+            self._awp = self._bwp = 0
+            self._cap_upto = self._sealed_upto = self._wp
+            self._cap_a = self._cap_b = 0
+            self.sketch_mirror.mark_cold()
+            if self._planner is not None:
+                self._planner.rebuild(_np(state.row_gid),
+                                      _np(state.trace_id),
+                                      wal_applied=self._wal_applied)
+
+    # -- durable write-ahead log (wal/) ---------------------------------
+
+    def attach_wal(self, wal) -> None:
+        """Journal every later launch group into ``wal`` before its
+        commit (the ack-after-append contract). Attach before live
+        writes: groups committed earlier are covered only by
+        checkpoints. The store does not own the log: callers close() it
+        after the store. The lineage tracker (``attach_lineage``) comes
+        with the fleet observability slice."""
+        with self._lock:
+            self.wal = wal
+            self._wal_marks = dict_sizes(self.dicts)
+
+    def _journal_group(self, group) -> int:
+        """Append one planned launch group (+ the dictionary entries its
+        encode step added) to the WAL; returns the record's sequence.
+        Runs on the encoding thread under ``_lock``, so append order ==
+        encode order == commit order — the property replay's
+        dictionary-delta chain depends on."""
+        sizes, deltas = dump_dict_deltas(self.dicts, self._wal_marks)
+        seq = self.wal.append(encode_unit(group, self._wal_marks, deltas))
+        self._wal_marks = sizes
+        return seq
+
+    def wal_sync(self) -> None:
+        """Force the attached WAL's durable frontier to its append
+        frontier (fsync); no-op without a WAL. Shutdown order:
+        drain the pipeline, wal_sync, checkpoint."""
+        if self.wal is not None:
+            self.wal.sync()
 
     # -- pipelined ingest lifecycle (store/pipeline.py) -----------------
 
@@ -751,6 +907,9 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
                 self.get_spans_by_trace_ids([trace_id]) or [[]])[0])
             with self._lock:
                 self._read_epoch += 1
+
+    def _bump_read_epoch(self) -> None:
+        self._read_epoch += 1
 
     def get_time_to_live(self, trace_id: int) -> float:
         with self._lock:
