@@ -51,9 +51,9 @@ nvcc per source, started together), then
    spans pipelined on the card against serial on the CPU;
 7. durability on the daemon's default store (the window on) at full
    width: a write-ahead log with the daemon's defaults (group commit
-   every 0.05 s, 64 MB segments), 8 launches, ``checkpoint.save``, 8
+   every 0.05 s, 64 MB segments), 5 launches, ``checkpoint.save``, 5
    more launches; then ``wal.recover`` restores a second store on the
-   card and replays the 8-record tail. Integer leaves and counters must
+   card and replays the 5-record tail. Integer leaves and counters must
    equal the uncrashed store's bitwise and the three moment leaves
    within the stated tolerance, the recovered mirror its own device
    leaves, and trace reads, name queries, dependency link counts and
@@ -61,18 +61,40 @@ nvcc per source, started together), then
    launches once a replayed step and the arena halves launch too. It
    prints the save, load and replay seconds by phase, the snapshot and
    WAL bytes, the log's append latency and the peak device memory; one
-   more launch must journal as record 17;
+   more launch must journal as record 11;
 8. the paged layout at capacity 2^14: a pipelined store is saved while
    a writer plans units past the gathered frontier; recovery on the
    card must take those units' page claims from the snapshot's plan
    memo, land the uncrashed planner snapshot and state, and serve
    trace reads (the page gather) equal to the uncrashed store's;
 9. the crash harness's child on the card (``python -m
-   zipkin_tpu_torch.testing.crash --device cuda``), SIGKILLed once at
+   zipkin_tpu_torch.testing.crash --device cuda``; the children run at
+   the same time, the recoveries one after another), SIGKILLed once at
    each of before-append, after-append, after-commit, mid-checkpoint and
-   mid-truncate; each recovery keeps every acked batch, equals an
-   uncrashed drive of the recovered prefix and leaves the first
-   unapplied batch absent.
+   mid-truncate, and twice at mid-seal on a tiered drive; each recovery
+   keeps every acked batch, equals an uncrashed drive of the recovered
+   prefix and leaves the first unapplied batch absent (tiered: the same
+   cold segments, the sealed frontier at the capture clock);
+10. the daemon's ``--cold-tier --capture-backlog 4`` store at full
+   width (the window store wrapped in a ``TieredSpanStore``, its
+   ``capture_backlog`` 4): launches past one lap of the span ring, so
+   the first capture window (~capacity spans) is pulled and sealed on
+   the sealer thread, with known traces of services of their own early
+   (evicted) and late (resident); sampled evicted and resident traces,
+   exist/duration, the name and annotation lookups, the dependency
+   links and the duration quantiles must equal an in-memory oracle fed
+   the same spans, K1 and both K2 halves must launch once a step, and
+   after ``capture_now`` the segments must tile [0, write_pos) with the
+   sealed frontier at the capture clock. It prints the pull (gather
+   device ms, count sync) and the seal (copy, batch rebuild, decode,
+   ``seal_segment``) a window, stalls, cold fetch ms, the segments and
+   their compression;
+11. a pipelined paged tiered store at capacity 2^14 past its page pool:
+   reclaimed pages sealed before reuse, trace reads through the page
+   gather equal to the oracle's;
+12. a tiered store on the card (sealer) against its CPU twin (inline)
+   at 2^14 with the window on: equal segment lists and bytes, then a
+   tiered ``checkpoint.save``/``load`` round trip on the card.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -97,6 +119,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -162,6 +185,7 @@ class Scale:
             self.paged_cap_log2, self.paged_launches = 12, 20
             self.page_max_chain, self.n_big = 3, 6
             self.big_min, self.big_max, self.overflow_spans = 64, 200, 400
+            self.cold_known, self.cold_sample = 10, 8
         else:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
@@ -170,10 +194,12 @@ class Scale:
             self.small_traces = 512
             # 46 launches two buckets apart: 92 buckets > 64 slots.
             self.window_launches = 46
-            # 12 apply calls of 28,672 spans (the first untimed).
-            self.pipe_applies, self.pipe_traces = 12, 4096
-            # 8 launches before the checkpoint, 8 after (the tail).
-            self.durability_launches = 8
+            # 8 apply calls of 28,672 spans (the first untimed), and 5
+            # launches before the checkpoint and 5 after (the tail): cut
+            # from 12 and 8 + 8 to keep the script near half its time
+            # limit since the cold-tier phases.
+            self.pipe_applies, self.pipe_traces = 8, 4096
+            self.durability_launches = 5
             # 12 apply calls of 3,584 spans into 2^14 slots: the page
             # pool of 128 pages runs out and reclaims.
             self.dur_paged_log2, self.dur_paged_applies = 14, 12
@@ -183,6 +209,13 @@ class Scale:
             self.page_max_chain, self.n_big = 64, 32
             self.big_min, self.big_max = 200, 4000
             self.overflow_spans = 20000  # > 64 pages x 128 rows
+            # Cold tier: 100 known traces early and late, 20 sampled
+            # stream traces of an evicted and of a resident launch.
+            self.cold_known, self.cold_sample = 100, 20
+        # Launches past one lap of the span ring: the first capture
+        # window (~capacity spans) is pulled and sealed, then three more.
+        self.cold_launches = -(-(1 << self.cap_log2)
+                               // (self.batch_traces * 7)) + 3
 
 
 # ---------------------------------------------------------------------------
@@ -1110,8 +1143,8 @@ def _compare_answers(want, got, what):
 
 def durability_path(torch, K, dev, scale, device):
     """Checkpoint + WAL at full width on the daemon's default store (the
-    window on): 8 launches journaled with the daemon's log defaults,
-    ``checkpoint.save``, 8 more, then ``wal.recover`` on the card into a
+    window on): 5 launches journaled with the daemon's log defaults,
+    ``checkpoint.save``, 5 more, then ``wal.recover`` on the card into a
     second store; the uncrashed store is the reference."""
     from zipkin_tpu_torch import checkpoint, obs
     from zipkin_tpu_torch.store.convert import state_to_numpy
@@ -1377,14 +1410,586 @@ def durability_paged(torch, K, dev, scale, device):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Eviction capture and the cold tier
+# ---------------------------------------------------------------------------
+
+# The cold-tier phases' known traces run on services and span names of
+# their own (the stream's generator leaves these ids free), so an
+# oracle fed only the known and sampled spans answers the lookups, the
+# dependency links and the quantiles of these services exactly.
+COLD_SERVICES = [f"ck-svc-{i}" for i in range(5)]
+COLD_OPS = [f"ck-op-{i}" for i in range(10)]
+
+
+def cold_known(n_traces: int, seed: int, base_ts: int):
+    from zipkin_tpu_torch.tracegen import generate_traces
+
+    rng = np.random.default_rng(seed)
+    traces = generate_traces(n_traces=n_traces, max_depth=3, n_services=5,
+                             rng=rng, base_ts=base_ts)
+    return [rename_services(t, COLD_SERVICES, COLD_OPS) for t in traces]
+
+
+def link_counts(spans, services):
+    """(parent service, child service) -> joined children with a
+    duration, over ``spans`` (one object a span), restricted to
+    ``services``: the dependency links an exact join gives."""
+    by_key = {(s.trace_id, s.id): s for s in spans}
+    out = {}
+    for s in spans:
+        p = by_key.get((s.trace_id, s.parent_id))
+        if p is None or s.duration is None:
+            continue
+        pair = (p.service_name, s.service_name)
+        if pair[0] in services and pair[1] in services:
+            out[pair] = out.get(pair, 0) + 1
+    return out
+
+
+def cold_reads_vs_oracle(store, oracle, tids, what, lookups=True,
+                         bounds=None):
+    """Every read the cold-tier phases hold against the oracle: whole
+    traces one by one (returns their ms), traces_exist and
+    get_traces_duration on the sample plus an absent id, and, with
+    ``lookups``, the name and annotation lookups, the dependency links
+    and the duration quantiles of the cold-tier services. ``bounds``
+    gives the (first, last) timestamps of generated stream traces from
+    their columns: the generator's ts columns carry client-side times
+    its annotation rows do not, so a decoded span's timestamps (the
+    oracle's) differ from the columns every store reads."""
+    from zipkin_tpu_torch.ops.quantile import quantiles_host
+    from zipkin_tpu_torch.store.archive import sketches as SK
+
+    ms = []
+    for tid in tids:
+        t = time.perf_counter()
+        got = store.get_spans_by_trace_ids([tid])
+        ms.append((time.perf_counter() - t) * 1e3)
+        want = oracle.get_spans_by_trace_ids([tid])
+        if got != want or not want:
+            fail(f"{what}: trace {tid} reads back "
+                 f"{sum(map(len, got))} spans, the oracle "
+                 f"{sum(map(len, want))}")
+    probe = list(tids) + [123456789]
+    if store.traces_exist(probe) != oracle.traces_exist(probe):
+        fail(f"{what}: traces_exist differs from the oracle")
+    if (store.get_traces_duration(probe)
+            != expected_durations(oracle, probe, bounds or {})):
+        fail(f"{what}: get_traces_duration differs from the oracle")
+    if not lookups:
+        return ms
+    end = 2**62
+    for svc, name in ((COLD_SERVICES[0], None),
+                      (COLD_SERVICES[1], COLD_OPS[3])):
+        want = oracle.get_trace_ids_by_name(svc, name, end, 20)
+        if store.get_trace_ids_by_name(svc, name, end, 20) != want \
+                or not want:
+            fail(f"{what}: by-name lookup {svc}/{name} differs")
+    want = oracle.get_trace_ids_by_annotation(
+        COLD_SERVICES[2], "http.uri", b"/api/widgets", end, 20)
+    if not want or store.get_trace_ids_by_annotation(
+            COLD_SERVICES[2], "http.uri", b"/api/widgets", end,
+            20) != want:
+        fail(f"{what}: by-annotation lookup differs")
+    svcs = set(COLD_SERVICES)
+    want = link_counts(oracle.spans, svcs)
+    got = {(lk.parent, lk.child): int(lk.duration_moments.count)
+           for lk in store.get_dependencies().links
+           if lk.parent in svcs and lk.child in svcs}
+    if got != want or not want:
+        fail(f"{what}: dependency links of the cold-tier services "
+             f"differ ({len(got)} vs {len(want)})")
+    gamma = store.params.hist_gamma
+    qs = [0.5, 0.9, 0.99]
+    for svc in COLD_SERVICES:
+        counts = np.zeros(store.params.hist_buckets, np.int64)
+        SK.hist_add(counts, np.asarray(
+            [s.duration for s in oracle.spans
+             if s.service_name == svc and s.duration is not None],
+            np.int64), gamma)
+        if store.service_duration_quantiles(svc, qs) != quantiles_host(
+                counts, gamma, 1.0, qs):
+            fail(f"{what}: duration quantiles of {svc} differ")
+    return ms
+
+
+def expected_durations(oracle, tids, bounds):
+    from zipkin_tpu_torch.store.base import TraceIdDuration
+
+    want = {d.trace_id: d for d in oracle.get_traces_duration(tids)}
+    for tid, (lo, hi) in bounds.items():
+        want[tid] = TraceIdDuration(tid, hi - lo, lo)
+    return [want[t] for t in tids if t in want]
+
+
+def column_bounds(batch, tids):
+    """{trace id: (min first ts, max last ts)} of ``tids`` from the
+    batch's columns (the store's duration semantics)."""
+    n = batch.n_spans
+    tid, tsf, tsl = (batch.trace_id[:n], batch.ts_first[:n],
+                     batch.ts_last[:n])
+    out = {}
+    for t in tids:
+        m = tid == t
+        ts = np.concatenate([tsf[m][tsf[m] >= 0], tsl[m][tsl[m] >= 0]])
+        out[int(t)] = (int(ts.min()), int(ts.max()))
+    return out
+
+
+def check_cold_coverage(tiered, what):
+    """Segments tile [0, capture clock) without gaps; the sealed
+    frontier reaches the clock."""
+    hot = tiered.hot
+    segs = tiered.archive.snapshot()
+    if not segs or segs[0].gid_lo != 0:
+        fail(f"{what}: no segment, or the first starts past gid 0")
+    for a, b in zip(segs, segs[1:]):
+        if a.gid_hi != b.gid_lo:
+            fail(f"{what}: cold coverage has a hole at {a.gid_hi}")
+    if not (segs[-1].gid_hi == hot._cap_upto == hot.sealed_frontier()):
+        fail(f"{what}: sealed frontier {hot.sealed_frontier()}, capture "
+             f"clock {hot._cap_upto}, last segment {segs[-1].gid_hi}")
+    return segs
+
+
+class SealClock:
+    """Times the capture machinery of one tiered store: the pull (host
+    ms, its gather's device ms, the count sync), and the seal split
+    into the device-to-host copy, the batch rebuild, the decode to Span
+    objects, ``seal_segment`` and the directory append. Installs
+    wrappers on modules and on the store; ``restore`` takes them off."""
+
+    def __init__(self, torch, tiered):
+        from zipkin_tpu_torch.store import device as dev
+        from zipkin_tpu_torch.store import pipeline, torch_store
+        from zipkin_tpu_torch.store.archive import tiered as tiered_mod
+
+        self.t = {k: [] for k in ("pull_ms", "gather_enqueue_ms",
+                                  "gather_device_ms", "d2h_s",
+                                  "to_batch_s", "sink_s", "seal_segment_s",
+                                  "append_s", "window_spans")}
+        self._undo = []
+        cuda = torch.cuda.is_available()
+        t = self.t
+
+        def patch(obj, name, wrap):
+            orig = getattr(obj, name)
+            self._undo.append((obj, name, orig, name in vars(obj)))
+            setattr(obj, name, wrap(orig))
+
+        def timed(key, scale=1.0, sealer_only=False):
+            def wrap(fn):
+                def run(*a, **kw):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **kw)
+                    if not sealer_only or (threading.current_thread().name
+                                           == "zipkin-capture-seal"):
+                        t[key].append((time.perf_counter() - t0) * scale)
+                    return out
+                return run
+            return wrap
+
+        def gather(fn):
+            def run(*a, **kw):
+                ev = None
+                if cuda:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                t["gather_enqueue_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                if ev is not None:
+                    ev[1].record()
+                    self._events.append(ev)
+                return out
+            return run
+
+        self._events = []
+        patch(dev, "capture_eviction_rows", gather)
+        hot = tiered.hot
+        patch(hot, "_pull_evicted_rows", timed("pull_ms", 1e3))
+        patch(pipeline, "fetch_mats", timed("d2h_s"))
+        # The reads rebuild batches too: time only the sealer's.
+        patch(torch_store, "mats_to_batch",
+              timed("to_batch_s", sealer_only=True))
+        patch(tiered_mod, "seal_segment", timed("seal_segment_s"))
+        patch(tiered.archive, "append", timed("append_s"))
+
+        def sink(fn):
+            def run(batch, *a):
+                t["window_spans"].append(batch.n_spans)
+                t0 = time.perf_counter()
+                fn(batch, *a)
+                t["sink_s"].append(time.perf_counter() - t0)
+            return run
+
+        patch(hot, "eviction_sink", sink)
+
+    def restore(self):
+        for obj, name, orig, own in reversed(self._undo):
+            if own:
+                setattr(obj, name, orig)
+            else:
+                delattr(obj, name)
+        self._undo = []
+
+    def summary(self):
+        t = self.t
+        dev_ms = [a.elapsed_time(b) for a, b in self._events]
+        decode = [s - a - b for s, a, b in zip(
+            t["sink_s"], t["seal_segment_s"], t["append_s"])]
+        n = len(t["sink_s"])
+        return {
+            "windows_sealed": n, "window_spans": t["window_spans"],
+            "pull_ms": t["pull_ms"],
+            "pull_gather_enqueue_ms": t["gather_enqueue_ms"],
+            "pull_gather_device_ms": dev_ms or "not measured",
+            "pull_count_sync_ms": [p - e for p, e in zip(
+                t["pull_ms"], t["gather_enqueue_ms"])],
+            "seal_s": [a + b + c for a, b, c in zip(
+                t["d2h_s"], t["to_batch_s"], t["sink_s"])][:n],
+            "seal_d2h_s": t["d2h_s"][:n], "seal_to_batch_s":
+                t["to_batch_s"][:n], "seal_decode_s": decode,
+            "seal_segment_s": t["seal_segment_s"],
+            "seal_append_s": t["append_s"],
+        }
+
+
+def cold_tier_path(torch, K, dev, scale, device, window):
+    """The daemon's ``--cold-tier --capture-backlog 4`` store at full
+    width: the window path's geometry wrapped as ``TieredSpanStore(hot,
+    params=ArchiveParams.for_config(config), background_compaction=
+    True)`` with ``hot.capture_backlog = 4``. Launches lap the span ring
+    once, so the first capture window (~capacity spans) is pulled and
+    sealed on the sealer thread; known traces on services of their own
+    go in early (evicted: cold only) and late (resident). The reads hold
+    sampled cold-only and resident traces, exist/duration, the lookups,
+    dependencies and quantiles against an oracle fed the same spans;
+    then ``capture_now`` and ``seal_barrier`` flush the rest and the
+    sealed frontier must tile [0, write_pos)."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.store.archive import ArchiveParams, TieredSpanStore
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+    cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
+    free_card(torch, device)
+    hot = TorchSpanStore(cfg, device=device.type, registry=obs.Registry())
+    hot.capture_backlog = 4
+    tiered = TieredSpanStore(hot, params=ArchiveParams.for_config(cfg),
+                             registry=obs.Registry(),
+                             background_compaction=True)
+    clock = SealClock(torch, tiered)
+    try:
+        return _cold_tier_path(torch, K, scale, device, window, cfg, hot,
+                               tiered, clock)
+    finally:
+        clock.restore()
+        tiered.close()
+        del hot, tiered
+        free_card(torch, device)
+
+
+def _cold_tier_path(torch, K, scale, device, window, cfg, hot, tiered,
+                    clock):
+    from zipkin_tpu_torch.store.memory import InMemorySpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    gen = ColumnarTraceGen(hot.dicts,
+                           n_services=scale.services - len(COLD_SERVICES),
+                           n_span_names=scale.names - len(COLD_OPS),
+                           topology=True, seed=21)
+    known = cold_known(2 * scale.cold_known, 22, WIN_BASE_US)
+    early, late = known[:scale.cold_known], known[scale.cold_known:]
+    oracle = InMemorySpanStore()
+    sampled = {}
+    bounds = {}
+    n_launches = scale.cold_launches
+
+    def batch_of(i):
+        batch, lc, ix = gen.next_batch(scale.batch_traces,
+                                       base_ts=WIN_BASE_US + i * WIN_STEP_US)
+        if i in (1, n_launches - 1):
+            tid = batch.trace_id[:batch.n_spans]
+            pick = np.unique(tid)[::max(1, scale.batch_traces
+                                        // scale.cold_sample)]
+            keep = np.isin(tid, pick)
+            oracle.apply(hot.codec.decode(batch.select(keep)))
+            sampled[i] = [int(t) for t in pick]
+            bounds.update(column_bounds(batch, pick))
+        return batch, lc, ix
+
+    K.reset_launches()
+    free_card(torch, device)
+    t_start = time.perf_counter()
+    step_s = []
+    known_s = 0.0
+    for i in range(n_launches):
+        batch, _, ix = batch_of(i)
+        t = time.perf_counter()
+        hot.write_batch(batch, ix)
+        sync(torch, device)
+        step_s.append(time.perf_counter() - t)
+        if i == 0 or i == n_launches - 1:
+            spans = [s for tr in (early if i == 0 else late) for s in tr]
+            t = time.perf_counter()
+            tiered.apply(spans)
+            sync(torch, device)
+            known_s += time.perf_counter() - t
+            oracle.apply(spans)
+    stream_s = time.perf_counter() - t_start
+    t = time.perf_counter()
+    tiered.seal_barrier()
+    barrier_s = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    steps = hot.counter_block()["batches"]
+    check_launches(launches, ("flat_histogram", "arena_claim",
+                              "arena_write"), device, "cold tier", steps)
+    for half in ("arena_claim", "arena_write"):
+        if device.type == "cuda" and launches[half] != steps:
+            fail(f"cold tier: {half} launched {launches[half]} times in "
+                 f"{steps} steps, not once a step")
+    sealer = hot.eviction_sealer()
+    if sealer is None or sealer.c_sealed.value < 1:
+        fail("cold tier: no capture window was sealed on the sealer")
+    segs = tiered.archive.snapshot()
+    full_window = max(s.n_spans for s in segs)
+    if full_window < cfg.capacity - 2 * scale.batch_traces * 7:
+        fail(f"cold tier: the largest sealed window holds {full_window} "
+             f"spans, not ~capacity ({cfg.capacity})")
+    cold_only = sampled[1] + [tr[0].trace_id for tr in early]
+    resident = sampled[n_launches - 1] + [tr[0].trace_id for tr in late]
+    if any(hot.get_trace_rows(cold_only[:5])):
+        fail("cold tier: the early traces are still in the hot ring")
+    mem_peak = (torch.cuda.max_memory_allocated()
+                if device.type == "cuda" else 0)
+    t = time.perf_counter()
+    cold_ms = cold_reads_vs_oracle(tiered, oracle, cold_only,
+                                   "cold tier (cold only)", bounds=bounds)
+    hot_ms = cold_reads_vs_oracle(tiered, oracle, resident,
+                                  "cold tier (resident)", lookups=False,
+                                  bounds=bounds)
+    reads_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tiered.capture_now()
+    tiered.seal_barrier()
+    flush_s = time.perf_counter() - t
+    segs = check_cold_coverage(tiered, "cold tier")
+    if hot._cap_upto != hot._wp:
+        fail("cold tier: capture_now left an uncaptured window")
+    # Column-only reads after the flush (no row decode).
+    probe = cold_only + resident + [123456789]
+    if tiered.traces_exist(probe) != oracle.traces_exist(probe):
+        fail("cold tier: traces_exist after the flush differs")
+    if (tiered.get_traces_duration(probe)
+            != expected_durations(oracle, probe, bounds)):
+        fail("cold tier: get_traces_duration after the flush differs")
+    stats = tiered.counters()
+    seal = clock.summary()
+    spans_streamed = n_launches * scale.batch_traces * 7
+    steady = step_s[1:] or step_s
+    result = {
+        "launches": n_launches, "spans_streamed": spans_streamed,
+        "known_spans": sum(len(t) for t in known),
+        "ingest_spans_per_s": spans_streamed / sum(step_s),
+        "ingest_spans_per_s_after_first": (
+            scale.batch_traces * 7 * len(steady) / sum(steady)),
+        "window_path_spans_per_s_after_first": window[
+            "ingest_spans_per_s_after_first"],
+        "step_s": step_s, "stream_s": stream_s, "known_apply_s": known_s,
+        "seal_barrier_wait_s": barrier_s, "reads_s": reads_s,
+        "capture_now_s": flush_s,
+        **seal,
+        "backlog_stall_s": sealer.c_stall.value,
+        "cold_fetch_ms_p50": float(np.percentile(cold_ms, 50)),
+        "cold_fetch_ms_p99": float(np.percentile(cold_ms, 99)),
+        "resident_fetch_ms_p50": float(np.percentile(hot_ms, 50)),
+        "resident_fetch_ms_p99": float(np.percentile(hot_ms, 99)),
+        "traces_compared": len(cold_only) + len(resident),
+        "segments_written": stats["archive_segments_written"],
+        "segments_live": stats["archive_segments_live"],
+        "segment_spans": [s.n_spans for s in segs],
+        "compactions": stats["archive_compactions"],
+        "cold_bytes": stats["archive_cold_bytes"],
+        "cold_raw_bytes": stats["archive_cold_raw_bytes"],
+        "compression_ratio": (stats["archive_cold_raw_bytes"]
+                              / max(stats["archive_cold_bytes"], 1)),
+        "max_memory_allocated_bytes": mem_peak,
+        "kernel_launches": launches, "ingest_steps": steps,
+    }
+    log("cold tier path result: " + json.dumps(result))
+    return result
+
+
+def cold_tier_paged(torch, K, dev, scale, device):
+    """A paged tiered store at capacity 2^14, pipelined, past the page
+    pool: each reclaimed page is pulled and sealed before the launch
+    that reuses it (``_capture_pages``); the side rings are sized as in
+    tests/test_paged.py (4x and 2x) so they do not lap before a page is
+    reclaimed. Whole-trace reads (the page gather) of sampled evicted
+    and resident traces are held against the oracle."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.store.archive import ArchiveParams, TieredSpanStore
+    from zipkin_tpu_torch.store.memory import InMemorySpanStore
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+    cfg = full_config(dev, scale.dur_paged_log2, scale.services,
+                      **paged_layout(scale))
+    cfg = cfg._replace(ann_capacity=4 * cfg.capacity,
+                       bann_capacity=2 * cfg.capacity)
+    applies = span_applies(scale, scale.dur_paged_applies,
+                           scale.dur_paged_traces, WIN_STEP_US, seed=23)
+    free_card(torch, device)
+    hot = TorchSpanStore(cfg, device=device.type, registry=obs.Registry())
+    hot.capture_backlog = 4
+    tiered = TieredSpanStore(hot, params=ArchiveParams.for_config(cfg),
+                             registry=obs.Registry())
+    oracle = InMemorySpanStore()
+    K.reset_launches()
+    t = time.perf_counter()
+    with hot.pipelined(depth=4):
+        for spans in applies:
+            tiered.apply(spans)
+            oracle.apply(spans)
+    tiered.seal_barrier()
+    sync(torch, device)
+    ingest_s = time.perf_counter() - t
+    steps = hot.counter_block()["batches"]
+    write_launches = dict(K.LAUNCHES)
+    check_launches(write_launches, ("flat_histogram", "arena_claim",
+                                    "arena_write"), device,
+                   "cold tier paged", steps)
+    reclaims = hot._planner.stats()["page_reclaims"]
+    if reclaims <= 0 or tiered.counters()["archive_segments_written"] <= 0:
+        fail("cold tier paged: no page was reclaimed and sealed")
+    tids = sorted({s.trace_id for spans in (applies[0], applies[-1])
+                   for s in spans[::61]})
+    K.reset_launches()
+    ms = cold_reads_vs_oracle(tiered, oracle, tids, "cold tier paged",
+                              lookups=False)
+    sync(torch, device)
+    read_launches = dict(K.LAUNCHES)
+    if device.type == "cuda" and read_launches["paged_page_gather"] <= 0:
+        fail("cold tier paged: the trace reads did not launch the page "
+             "gather")
+    stats = tiered.counters()
+    result = {
+        "capacity": cfg.capacity, "pages": cfg.n_pages,
+        "applies": len(applies), "ingest_s": ingest_s,
+        "page_reclaims": reclaims,
+        "segments_written": stats["archive_segments_written"],
+        "segments_live": stats["archive_segments_live"],
+        "compactions": stats["archive_compactions"],
+        "sealed_frontier": hot.sealed_frontier(),
+        "cold_spans": stats["archive_cold_spans"],
+        "traces_compared": len(tids),
+        "read_ms_p50": float(np.percentile(ms, 50)),
+        "read_ms_p99": float(np.percentile(ms, 99)),
+        "kernel_launches": write_launches, "ingest_steps": steps,
+        "read_launches": read_launches,
+    }
+    log("cold tier paged result: " + json.dumps(result))
+    tiered.close()
+    del hot, tiered
+    return result
+
+
+def cold_tier_parity(torch, dev, scale, rehearse: bool):
+    """A tiered store on the card (capture_backlog 4: the sealer) and
+    its CPU twin (inline sealing) fed the same batches at capacity 2^14
+    with the window on: the segment lists (ids, [gid_lo, gid_hi)) and
+    every segment's ``to_bytes()`` must be bitwise equal; the seal is
+    host code, so this holds the pulled rows. Then the card store's
+    ``checkpoint.save``/``load`` round trip on the card: the segments,
+    the hot state and the capture clocks come back, and trace reads
+    equal the saved store's."""
+    from zipkin_tpu_torch import checkpoint, obs
+    from zipkin_tpu_torch.store.archive import ArchiveParams, TieredSpanStore
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    cfg = full_config(dev, scale.small_log2, scale.services, **WINDOW)
+    card = "cpu" if rehearse else "cuda"
+    stores = []
+    tids = []
+    for device, backlog in ((card, 4), ("cpu", 0)):
+        hot = TorchSpanStore(cfg, device=device, registry=obs.Registry())
+        hot.capture_backlog = backlog
+        tiered = TieredSpanStore(hot, params=ArchiveParams.for_config(cfg),
+                                 registry=obs.Registry())
+        gen = ColumnarTraceGen(hot.dicts, n_services=scale.services,
+                               n_span_names=scale.names, topology=True,
+                               seed=24)
+        for i in range(scale.small_batches):
+            batch, _, ix = gen.next_batch(
+                scale.small_traces, base_ts=WIN_BASE_US + i * PARITY_STEP_US)
+            hot.write_batch(batch, ix)
+            if not stores and i % 5 == 0:
+                tids.append(int(batch.trace_id[0]))
+        tiered.capture_now()
+        stores.append(tiered)
+    a, b = stores
+
+    def segs(t):
+        return [(s.seg_id, s.gid_lo, s.gid_hi, s.to_bytes())
+                for s in t.archive.snapshot()]
+
+    want = segs(b)
+    if segs(a) != want or len(want) < 2:
+        fail(f"cold tier parity: the card's {len(segs(a))} segments differ "
+             f"from the cpu twin's {len(want)}")
+    check_cold_coverage(a, "cold tier parity")
+    _check_states_equal(state_to_numpy(b.hot.state),
+                        state_to_numpy(a.hot.state), "cold tier parity")
+    work = tempfile.mkdtemp(prefix="zipkin-cold-ckpt-")
+    try:
+        path = os.path.join(work, "ckpt")
+        t = time.perf_counter()
+        save = checkpoint.save(a, path)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got = checkpoint.load(path, device=card)
+        load_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if not isinstance(got, TieredSpanStore) or segs(got) != segs(a):
+        fail("cold tier checkpoint: the restored segments differ")
+    _check_states_equal(state_to_numpy(a.hot.state),
+                        state_to_numpy(got.hot.state),
+                        "cold tier checkpoint")
+    if (got.hot._cap_upto, got.hot.sealed_frontier()) != (
+            a.hot._cap_upto, a.hot.sealed_frontier()):
+        fail("cold tier checkpoint: the capture clocks differ")
+    if (got.get_spans_by_trace_ids(tids) != a.get_spans_by_trace_ids(tids)
+            or not tids):
+        fail("cold tier checkpoint: trace reads differ after the load")
+    result = {"capacity": cfg.capacity,
+              "spans": int(a.hot._wp), "segments": len(want),
+              "segment_bytes": sum(len(s[3]) for s in want),
+              "save_s": save_s, "load_s": load_s,
+              "snapshot_bytes_on_disk": save["bytes_on_disk"],
+              "traces_read": len(tids)}
+    log("cold tier parity result: " + json.dumps(result))
+    for t in stores + [got]:
+        t.close()
+    return result
+
+
 # (point, hit, batches, checkpoint after these batches, segment bytes,
-#  applied, acked): the cases of tests/test_crash.py.
+#  applied, acked, tiered): the cases of tests/test_crash.py; mid-seal
+#  kills a tiered drive (2^8 ring, capture on its path) between a
+#  capture pull and the segment append.
 KILL_CASES = (
-    ("before-append", 5, 8, (3,), 64 << 20, 4, 4),
-    ("after-append", 4, 6, (2,), 64 << 20, 4, 3),
-    ("after-commit", 5, 8, (3,), 64 << 20, 5, 4),
-    ("mid-checkpoint", 2, 10, (4, 8), 64 << 20, 8, 8),
-    ("mid-truncate", 2, 8, (6,), 1 << 12, 6, 6),
+    ("before-append", 5, 8, (3,), 64 << 20, 4, 4, False),
+    ("after-append", 4, 6, (2,), 64 << 20, 4, 3, False),
+    ("after-commit", 5, 8, (3,), 64 << 20, 5, 4, False),
+    ("mid-checkpoint", 2, 10, (4, 8), 64 << 20, 8, 8, False),
+    ("mid-truncate", 2, 8, (6,), 1 << 12, 6, 6, False),
+    ("mid-seal", 2, 30, (), 64 << 20, 21, 20, True),
+    ("mid-seal", 3, 30, (10,), 64 << 20, 30, 29, True),
 )
 
 
@@ -1393,37 +1998,51 @@ def crash_kill_points(torch, device):
     recovery on the card must keep the acked batches, equal an
     uncrashed drive of the recovered prefix (integer leaves bitwise, the
     moments within the stated tolerance) and leave the first unapplied
-    batch absent."""
+    batch absent. The children run at the same time (each is a fresh
+    process that spends most of its ~10 s reaching the card); the
+    recoveries run one after another."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from zipkin_tpu_torch.testing.crash import run_crash_child, \
         verify_recovery
 
+    def child(case):
+        point, hit, batches, ckpt_at, seg, _, _, tiered = case
+        t = time.perf_counter()
+        proc = run_crash_child(case_dirs[case], point=point, hit=hit,
+                               batches=batches, ckpt_at=ckpt_at,
+                               segment_bytes=seg, tiered=tiered,
+                               device=device.type, timeout=300)
+        return proc, time.perf_counter() - t
+
+    case_dirs = {case: tempfile.mkdtemp(prefix=f"zipkin-crash-{case[0]}-")
+                 for case in KILL_CASES}
     out = {}
-    for point, hit, batches, ckpt_at, seg, applied, acked in KILL_CASES:
-        wd = tempfile.mkdtemp(prefix=f"zipkin-crash-{point}-")
-        try:
-            t = time.perf_counter()
-            proc = run_crash_child(wd, point=point, hit=hit,
-                                   batches=batches, ckpt_at=ckpt_at,
-                                   segment_bytes=seg, device=device.type,
-                                   timeout=300)
-            child_s = time.perf_counter() - t
+    try:
+        with ThreadPoolExecutor(max_workers=len(KILL_CASES)) as pool:
+            runs = list(pool.map(child, KILL_CASES))
+        for case, (proc, child_s) in zip(KILL_CASES, runs):
+            point, hit, batches, _, _, applied, acked, tiered = case
             if proc.returncode != -signal.SIGKILL:
                 fail(f"crash child at {point}:{hit} exited "
                      f"{proc.returncode}, not by SIGKILL\n"
                      f"{proc.stderr[-2000:]}")
             t = time.perf_counter()
-            info = verify_recovery(wd, total_batches=batches,
-                                   device=device.type)
+            info = verify_recovery(case_dirs[case], total_batches=batches,
+                                   tiered=tiered, device=device.type)
             verify_s = time.perf_counter() - t
-        finally:
+            if (info["applied"], info["acked"]) != (applied, acked):
+                fail(f"kill point {point}: applied/acked "
+                     f"{info['applied']}/{info['acked']}, expected "
+                     f"{applied}/{acked}")
+            out[f"{point}:{hit}"] = {
+                "hit": hit, "batches": batches, "tiered": tiered,
+                "applied": info["applied"], "acked": info["acked"],
+                "replayed_records": info["replayed_records"],
+                "child_s": child_s, "verify_s": verify_s}
+    finally:
+        for wd in case_dirs.values():
             shutil.rmtree(wd, ignore_errors=True)
-        if (info["applied"], info["acked"]) != (applied, acked):
-            fail(f"kill point {point}: applied/acked {info['applied']}/"
-                 f"{info['acked']}, expected {applied}/{acked}")
-        out[point] = {"hit": hit, "batches": batches,
-                      "applied": info["applied"], "acked": info["acked"],
-                      "replayed_records": info["replayed_records"],
-                      "child_s": child_s, "verify_s": verify_s}
     log("crash kill points result: " + json.dumps(out))
     return out
 
@@ -1937,6 +2556,12 @@ def main() -> int:
     hist8, hist8_rows = phase("flat_histogram_window", hist_phase, torch, K,
                               wrec, 8, (7,))
     del wrec
+    cold = phase("cold_tier_path", cold_tier_path, torch, K, dev, scale,
+                 device, wresult)
+    cpaged = phase("cold_tier_paged", cold_tier_paged, torch, K, dev, scale,
+                   device)
+    phase("cold_tier_parity", cold_tier_parity, torch, dev, scale,
+          args.rehearse)
     piped = phase("pipeline_path", pipeline_path, torch, K, dev, scale,
                   device)
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
@@ -1953,13 +2578,19 @@ def main() -> int:
                "window": wresult["kernel_launches"],
                "pipeline": piped["kernel_launches"],
                "durability": durable["kernel_launches"],
-               "durability_paged": dpaged["read_launches"]}
+               "durability_paged": dpaged["read_launches"],
+               "cold_tier": cold["kernel_launches"],
+               "cold_tier_paged": {k: cpaged["kernel_launches"][k]
+                                   + cpaged["read_launches"][k]
+                                   for k in cpaged["kernel_launches"]}}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
                      "pipeline": piped["ingest_steps"],
                      "durability": durable["ingest_steps"],
-                     "durability_paged": 0}
+                     "durability_paged": 0,
+                     "cold_tier": cold["ingest_steps"],
+                     "cold_tier_paged": cpaged["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",

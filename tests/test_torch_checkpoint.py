@@ -17,6 +17,10 @@ Paged (the cross-package snapshots are in ``test_torch_paged.py``,
 on its driven stores): a paged config pointed at a snapshot without
 ``meta["paged"]`` rebuilds, and a pipelined save with units planned
 ahead of the gathered frontier replays their recorded plans.
+Tiered (``store/archive``): a port round trip restores the segments,
+the hot state and the capture clocks and keeps capturing; tiered
+snapshots cross between the packages both ways; a segment referencing
+dictionary ids the snapshot lacks is refused.
 """
 
 import json
@@ -40,6 +44,7 @@ from test_torch_store import (  # noqa: E402
     jax_leaves,
     pinned_stores,
 )
+from test_archive import CFG, PARAMS, make_trace  # noqa: E402
 from zipkin_tpu import checkpoint as ref_checkpoint  # noqa: E402
 from zipkin_tpu.models.span import (  # noqa: E402
     Annotation,
@@ -54,6 +59,10 @@ from zipkin_tpu_torch import checkpoint  # noqa: E402
 from zipkin_tpu_torch import obs  # noqa: E402
 from zipkin_tpu_torch.checkpoint import CorruptSlabError  # noqa: E402
 from zipkin_tpu_torch.store import device as tdev  # noqa: E402
+from zipkin_tpu_torch.store.archive import (  # noqa: E402
+    ArchiveParams,
+    TieredSpanStore,
+)
 from zipkin_tpu_torch.store.base import StoreSuspectError  # noqa: E402
 from zipkin_tpu_torch.store.convert import state_to_numpy  # noqa: E402
 from zipkin_tpu_torch.store.torch_store import TorchSpanStore  # noqa: E402
@@ -425,14 +434,119 @@ def test_port_chunked_save_slabs_big_leaves(tmp_path, monkeypatch):
 
 
 def test_sharded_and_tiered_snapshots_are_refused(tmp_path):
+    """Sharded snapshots wait for the sharding slice; a tiered snapshot
+    whose segments reference dictionary ids past the saved dictionaries
+    is inconsistent and refused."""
     path = tmp_path / "ckpt"
     checkpoint.save(_small_store(), str(path))
     meta = json.loads((path / "meta.json").read_text())
-    for key, item in (("shards", "item 7"), ("archive", "item 2")):
-        bad = dict(meta, **{key: 4 if key == "shards" else {"x": 1}})
-        (path / "meta.json").write_text(json.dumps(bad))
-        with pytest.raises(NotImplementedError, match=item):
-            checkpoint.load(str(path), device="cpu")
+    (path / "meta.json").write_text(json.dumps(dict(meta, shards=4)))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        checkpoint.load(str(path), device="cpu")
+    tiered, _ = _tiered_drive(CFG.capacity)
+    checkpoint.save(tiered, str(path))
+    meta = json.loads((path / "meta.json").read_text())
+    assert meta["archive"]["segments"]
+    meta["dicts"]["services"] = meta["dicts"]["services"][:1]
+    (path / "meta.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="inconsistent"):
+        checkpoint.load(str(path), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Tiered stores (store/archive): the hot snapshot plus segment blobs
+# ---------------------------------------------------------------------------
+
+
+def _tiered_drive(n_traces, port=None, ref=None):
+    """make_trace spans (tests/test_archive.py) into a port tiered
+    store (and a JAX one when ``ref`` is given) and a port oracle."""
+    from zipkin_tpu_torch.store.memory import InMemorySpanStore
+
+    port = port or TieredSpanStore(
+        TorchSpanStore(tdev.StoreConfig(**CFG._asdict()), device="cpu",
+                       registry=obs.Registry()),
+        params=ArchiveParams(**PARAMS._asdict()), registry=obs.Registry())
+    oracle = InMemorySpanStore()
+    for lo in range(1, n_traces + 1, 32):
+        batch = [s for tid in range(lo, min(lo + 32, n_traces + 1))
+                 for s in make_trace(tid)]
+        if ref is not None:
+            ref.apply(batch)
+        port.apply(_convert(batch, PORT))
+        oracle.apply(_convert(batch, PORT))
+    return port, oracle
+
+
+def _segs(tiered):
+    return [(s.seg_id, s.gid_lo, s.gid_hi, s.to_bytes())
+            for s in tiered.archive.snapshot()]
+
+
+def test_port_tiered_snapshot_roundtrip(tmp_path):
+    n = 3 * CFG.capacity // 2
+    tiered, oracle = _tiered_drive(n)
+    path = str(tmp_path / "ckpt")
+    stats = checkpoint.save(tiered, path)
+    assert os.listdir(os.path.join(path, "segments"))
+    got = checkpoint.load(path, device="cpu")
+    assert isinstance(got, TieredSpanStore)
+    assert _segs(got) == _segs(tiered)
+    assert not state_mismatches(tiered.hot.state, got.hot.state)
+    assert (got.hot._cap_upto, got.hot.sealed_frontier()) == (
+        tiered.hot._cap_upto, tiered.hot.sealed_frontier())
+    for tid in (1, n // 2, n):
+        assert (got.get_spans_by_trace_ids([tid])
+                == oracle.get_spans_by_trace_ids([tid])), tid
+    assert (got.get_trace_ids_by_name("web", None, 1 << 60, 10 * n)
+            == oracle.get_trace_ids_by_name("web", None, 1 << 60, 10 * n))
+    # A second save links the unchanged blobs instead of rewriting them.
+    again = checkpoint.save(got, path)
+    assert again["reused_segments"] == len(got.archive)
+    assert stats.get("reused_segments", 0) == 0
+    # Ingest after the restore keeps capturing.
+    extra = _convert(make_trace(10 ** 6), PORT)
+    _tiered_drive(CFG.capacity, port=got)
+    got.apply(extra)
+    assert got.get_spans_by_trace_ids([10 ** 6]) == [extra]
+    assert got.archive.snapshot()[-1].gid_hi > tiered.hot._cap_upto
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_tiered_snapshots_cross_packages(tmp_path, direction):
+    from zipkin_tpu.store.archive import TieredSpanStore as RefTiered
+
+    n = 3 * CFG.capacity // 2
+    ref = RefTiered(TpuSpanStore(CFG), params=PARAMS)
+    port, oracle = _tiered_drive(n, ref=ref)
+    path = str(tmp_path / "ckpt")
+    if direction == "jax_to_port":
+        ref_checkpoint.save(ref, path)
+        got = checkpoint.load(path, device="cpu")
+        assert isinstance(got, TieredSpanStore)
+        assert_bitwise(jax_leaves(ref.hot.state),
+                       state_to_numpy(got.hot.state))
+        want_segs = [(s.seg_id, s.gid_lo, s.gid_hi, s.to_bytes())
+                     for s in ref.archive.snapshot()]
+        reads = got
+    else:
+        checkpoint.save(port, path)
+        got = ref_checkpoint.load(path)
+        assert isinstance(got, RefTiered)
+        assert_bitwise(state_to_numpy(port.hot.state),
+                       jax_leaves(got.hot.state))
+        want_segs = _segs(port)
+        reads = _RefSpanAdapter(port)
+    assert [(s.seg_id, s.gid_lo, s.gid_hi, s.to_bytes())
+            for s in got.archive.snapshot()] == want_segs
+    assert got.hot._cap_upto == port.hot._cap_upto
+    for tid in (1, n // 3, n):
+        a = got.get_spans_by_trace_ids([tid])
+        b = reads.get_spans_by_trace_ids([tid])
+        assert a == b and a, tid
+    if direction == "jax_to_port":
+        assert got.get_spans_by_trace_ids([1]) == (
+            oracle.get_spans_by_trace_ids([1]))
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,12 @@ point; the parent recovers from what is on disk and requires
   the recovered prefix,
 - the first unapplied batch to be absent, never partial.
 
-The after-append smoke runs in the fast lane, as in
-``tests/test_crash.py``; the rest of the matrix is marked slow. The
-``mid-seal`` point waits for the capture/cold-tier slice.
+The after-append smoke and a tiered drive (eviction capture on its
+replayed path) run in the fast lane; the rest of the matrix is marked
+slow, as in ``tests/test_crash.py``. ``mid-seal`` kills a tiered drive
+between a capture pull and the cold segment append: recovery must keep
+the acked prefix and seal the oracle's cold segments, the sealed
+frontier contiguous up to the capture clock.
 """
 
 import signal
@@ -31,15 +34,16 @@ SIGKILLED = -signal.SIGKILL
 
 
 def _crash_and_verify(tmp_path, point, hit, batches, ckpt_at=(),
-                      segment_bytes=64 << 20):
+                      segment_bytes=64 << 20, tiered=False):
     wd = str(tmp_path)
     proc = run_crash_child(wd, point=point, hit=hit, batches=batches,
                            ckpt_at=ckpt_at, segment_bytes=segment_bytes,
-                           device="cpu", timeout=300)
+                           tiered=tiered, device="cpu", timeout=300)
     assert proc.returncode == SIGKILLED, (
         f"child survived {point}:{hit} (rc {proc.returncode})\n"
         f"{proc.stderr[-2000:]}")
-    return verify_recovery(wd, total_batches=batches, device="cpu")
+    return verify_recovery(wd, total_batches=batches, tiered=tiered,
+                           device="cpu")
 
 
 def test_port_crash_after_append_recovers_exactly(tmp_path):
@@ -52,10 +56,19 @@ def test_port_crash_after_append_recovers_exactly(tmp_path):
 
 
 def test_port_tiered_drive_waits_for_the_cold_tier(tmp_path):
-    with pytest.raises(NotImplementedError, match="cold tier"):
-        crash.crash_config(tiered=True)
-    with pytest.raises(NotImplementedError, match="cold tier"):
-        run_crash_child(str(tmp_path), tiered=True)
+    """A clean tiered child (its 2^8 ring laps, so captures seal on the
+    way) recovers from its checkpoint and log to the uncrashed drive:
+    state bitwise, the same cold segments, the sealed frontier at the
+    capture clock."""
+    assert crash.crash_config(tiered=True).capacity == 1 << 8
+    proc = run_crash_child(str(tmp_path), point=None, batches=12,
+                           ckpt_at=(6,), tiered=True, device="cpu",
+                           timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    info = verify_recovery(str(tmp_path), total_batches=12, tiered=True,
+                           device="cpu")
+    assert info["applied"] == info["acked"] == 12
+    assert info["replayed_records"] == 6
 
 
 @pytest.mark.slow
@@ -92,6 +105,21 @@ def test_port_crash_mid_truncate(tmp_path):
     info = _crash_and_verify(tmp_path, "mid-truncate", hit=2, batches=8,
                              ckpt_at=(6,), segment_bytes=1 << 12)
     assert info["applied"] == info["acked"] == 6
+
+
+@pytest.mark.slow
+def test_port_crash_mid_seal_replays_capture(tmp_path):
+    info = _crash_and_verify(tmp_path, "mid-seal", hit=2, batches=30,
+                             tiered=True)
+    assert info["applied"] >= info["acked"]
+    assert info["replayed_records"] > 0
+
+
+@pytest.mark.slow
+def test_port_crash_mid_seal_with_checkpoint(tmp_path):
+    info = _crash_and_verify(tmp_path, "mid-seal", hit=3, batches=30,
+                             ckpt_at=(10,), tiered=True)
+    assert info["applied"] >= info["acked"]
 
 
 @pytest.mark.slow

@@ -535,3 +535,93 @@ def test_cuda_snapshots_cross_devices(cuda, tmp_path):
         tids = sorted({s.trace_id for s in applies[-1]})[:20]
         assert got.get_spans_by_trace_ids(tids) == \
             src.get_spans_by_trace_ids(tids)
+
+
+# -- eviction capture and the cold tier on the card --------------------------
+
+
+def _tiered(device, backlog=0):
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.store.archive import ArchiveParams, TieredSpanStore
+
+    hot = _window_store(device=device, registry=obs.Registry())
+    hot.capture_backlog = backlog
+    return TieredSpanStore(hot, params=ArchiveParams.for_config(
+        hot.config, compact_fanin=2, small_span_limit=hot.config.capacity),
+        registry=obs.Registry())
+
+
+def _segments(tiered):
+    tiered.seal_barrier()
+    return [(s.seg_id, s.gid_lo, s.gid_hi, s.to_bytes())
+            for s in tiered.archive.snapshot()]
+
+
+@pytest.mark.cuda
+def test_cuda_capture_pull_matches_cpu(cuda):
+    """The pull on the card returns the CPU pull's counts and valid
+    prefix bitwise (the ann/bann tails masked to -1 in both), and a card
+    tiered store seals the CPU twin's segments bitwise."""
+    from zipkin_tpu_torch.store import device as tdev
+
+    applies = _window_applies()
+    stores = {d: _tiered(d) for d in ("cuda", "cpu")}
+    for spans in applies:
+        for s in stores.values():
+            s.apply(spans)
+    card, cpu = stores["cuda"], stores["cpu"]
+    torch.cuda.synchronize()
+    assert card.counters()["archive_segments_written"] >= 1
+    assert _segments(card) == _segments(cpu)
+    cap = card.hot.config.capacity
+    wp = card.hot._wp
+    for lo, hi in ((wp - cap, wp - cap // 2), (wp - 300, wp)):
+        ks = (cap, card.hot.config.ann_capacity,
+              card.hot.config.bann_capacity)
+        got = [x.cpu().numpy() for x in tdev.capture_eviction_rows(
+            card.hot.state, lo, hi, *ks)]
+        want = [x.numpy() for x in tdev.capture_eviction_rows(
+            cpu.hot.state, lo, hi, *ks)]
+        np.testing.assert_array_equal(want[0], got[0])
+        n_s = int(want[0][0])
+        assert n_s == hi - lo
+        np.testing.assert_array_equal(want[1][:, :n_s], got[1][:, :n_s])
+        np.testing.assert_array_equal(want[2], got[2])
+        np.testing.assert_array_equal(want[3], got[3])
+
+
+@pytest.mark.cuda
+def test_cuda_sealer_copies_on_its_own_stream(cuda, monkeypatch):
+    """With capture_backlog > 0 the sealer copies each pulled window on
+    a stream of its own, after the pull's event, with the matrices
+    record_stream-ed onto it; pipelined ingest with a slowed sealer
+    (windows queue, later steps allocate) seals the inline twin's
+    segments bitwise."""
+    import time
+
+    from zipkin_tpu_torch.store import pipeline
+
+    applies = _window_applies()
+    inline = _tiered("cuda")
+    for spans in applies:
+        inline.apply(spans)
+    fetch = pipeline.fetch_mats
+    seen = []
+
+    def slow_fetch(mats, stream=None, after=None):
+        seen.append((stream is not None and after is not None,
+                     stream.cuda_stream if stream is not None else None))
+        time.sleep(0.2)
+        return fetch(mats, stream, after)
+
+    monkeypatch.setattr(pipeline, "fetch_mats", slow_fetch)
+    piped = _tiered("cuda", backlog=2)
+    with piped.hot.pipelined(depth=4):
+        for spans in applies:
+            piped.apply(spans)
+    main = torch.cuda.current_stream().cuda_stream
+    assert seen and all(ok and s != main for ok, s in seen)
+    assert _segments(piped) == _segments(inline)
+    assert piped.hot.sealed_frontier() == piped.hot._cap_upto
+    assert piped.hot.eviction_sealer().c_sealed.value == len(seen)
+    piped.close()

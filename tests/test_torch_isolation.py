@@ -51,6 +51,12 @@ def test_package_imports_without_jax():
             "zipkin_tpu_torch.aggregate.windows, zipkin_tpu_torch.obs, "
             "zipkin_tpu_torch.checkpoint, zipkin_tpu_torch.wal, "
             "zipkin_tpu_torch.wal.log, zipkin_tpu_torch.wal.record, "
-            "zipkin_tpu_torch.wal.recovery, zipkin_tpu_torch.testing.crash")
+            "zipkin_tpu_torch.wal.recovery, zipkin_tpu_torch.testing.crash, "
+            "zipkin_tpu_torch.store.memory, zipkin_tpu_torch.store.archive, "
+            "zipkin_tpu_torch.store.archive.sketches, "
+            "zipkin_tpu_torch.store.archive.segment, "
+            "zipkin_tpu_torch.store.archive.directory, "
+            "zipkin_tpu_torch.store.archive.coldquery, "
+            "zipkin_tpu_torch.store.archive.tiered")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

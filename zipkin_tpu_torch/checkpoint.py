@@ -22,9 +22,15 @@ pipeline and then holds the store's ``_lock`` (no stage-1 writer) and
 gather and the clock read. Nothing is copied into a second device
 buffer: at full width that would be another ~4.8 GB.
 
+A ``TieredSpanStore`` (``store/archive``) snapshots as its hot store
+plus ``meta["archive"]`` (the sketch params, the sealed frontier and the
+segment manifest) and one immutable blob per segment under
+``segments/``; a blob the previous snapshot already holds is linked,
+not written again. ``load`` then returns a ``TieredSpanStore`` whose
+cold tier continues contiguously from the snapshot's frontier.
+
 Not here yet: sharded snapshots (``meta["shards"]``, the sharding
-slice) and tiered ones (``meta["archive"]``, the capture/cold-tier
-slice); ``load`` refuses both by name.
+slice); ``load`` refuses them by name.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from zipkin_tpu_torch.wal.record import dump_value, load_value
 _STATE_FILE = "state.npz"
 _META_FILE = "meta.json"
 _PINS_FILE = "pins.pkl"
+_SEGMENTS_DIR = "segments"
 # The reference's revision history (zipkin_tpu/checkpoint.py) applies
 # unchanged; load() adapts every single-device revision:
 # 3 dep_banks; 4 streaming-join leaves (pre-4 live links migrate);
@@ -60,8 +67,8 @@ _PINS_FILE = "pins.pkl"
 # ann_poison (pre-7 poisoned); 8 key_claim_drops; 9 i32 key_tab
 # fingerprints (pre-9 tombstoned); 10/11 one unified index arena
 # (pre-11 cand_*/tr_* dropped, span_tab bitcast to planes); 13 exact
-# host clocks + per-leaf CRC32; 14 windowed arena leaves; 18 the paged
-# planner's snapshot.
+# host clocks + per-leaf CRC32; 12 the cold-tier archive manifest;
+# 14 windowed arena leaves; 18 the paged planner's snapshot.
 _REVISION = 18
 
 # The span model's module in each package: pins.pkl names the
@@ -88,7 +95,10 @@ def _host_clocks(store) -> dict:
     """The store's host pacing clocks plus the applied WAL sequence,
     read under the same locks as the state gather (the commit advances
     them in the same ``_state_lock`` hold as the step, so the pair is
-    exact)."""
+    exact). The capture clocks are ``_cap_lock``'s, which is taken
+    BEFORE ``_state_lock`` (a pull holds it while it waits for the
+    state), so they are read here without it: a pull cannot complete,
+    and so cannot move them, while the gather holds the state lock."""
     return {
         "wp": int(store._wp),
         "awp": int(store._awp),
@@ -295,11 +305,14 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
     write between attempts discards the stage rather than mixing two
     cuts). Returns stats: the phase seconds (``gather_s``, ``crc_s``,
     ``compress_s``, ``rename_s``), ``bytes_on_disk``, slab transfer
-    counts, resumed leaves and WAL segments truncated."""
-    if getattr(store, "archive", None) is not None:
-        raise NotImplementedError(
-            "tiered snapshots need the capture/cold tier, which the port "
-            "does not have yet (ROADMAP Queue 1, item 2)")
+    counts, resumed leaves, segment blobs reused and WAL segments
+    truncated. A ``TieredSpanStore`` saves as its hot store plus the
+    segment manifest and blobs (segments add host IO only, never
+    device time under the locks)."""
+    tiered = (store if getattr(store, "archive", None) is not None
+              and hasattr(store, "hot") else None)
+    if tiered is not None:
+        store = tiered.hot
     # A prior save's timeout may have left an orphaned transfer thread
     # still reading the state; a fresh cut must not race it.
     if store.suspect:
@@ -317,12 +330,18 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
         # no commit and no reader moves the state or the clocks while
         # they are copied out.
         with store._lock, store._state_lock:
+            # Capture-backlog quiesce under the locks: a window pulled
+            # before this point seals now; one pulled after cannot lose
+            # rows from this cut (its overwriting step waits for the
+            # state lock until the gather is done).
+            store.seal_barrier()
             clocks = _host_clocks(store)
             for key, leaf in _state_items(store.state):
                 leaves[key] = np.asarray(_to_host(leaf))
     else:
         try:
             with store._lock, store._state_lock:
+                store.seal_barrier()  # as in the one-pass gather
                 clocks = _host_clocks(store)
                 gen = _state_generation(store, chunk_deadline_s)
                 if os.path.isdir(staging):
@@ -371,6 +390,8 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
         # returned before the restart.
         pins_snapshot = {tid: list(bank) for tid, bank in store.pins.items()}
         ttls_snapshot = {str(k): v for k, v in store.ttls.items()}
+        archive_meta, seg_blobs = (_archive_manifest(tiered)
+                                   if tiered is not None else (None, []))
     t0 = time.perf_counter()
     crcs = {k: _slab_crc(v) for k, v in leaves.items()}
     stats["crc_s"] = time.perf_counter() - t0
@@ -391,6 +412,8 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
         },
         "clocks": clocks,
     }
+    if archive_meta is not None:
+        meta["archive"] = archive_meta
     if paged_meta is not None:
         meta["paged"] = paged_meta
     parent = os.path.dirname(os.path.abspath(path)) or "."
@@ -406,8 +429,11 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
         if pins_snapshot:
             with open(os.path.join(tmp, _PINS_FILE), "wb") as f:
                 f.write(_dump_pins(pins_snapshot))
+        if seg_blobs:
+            _write_segments(tmp, path, seg_blobs, stats)
         stats["bytes_on_disk"] = sum(
-            os.path.getsize(os.path.join(tmp, n)) for n in os.listdir(tmp))
+            os.path.getsize(os.path.join(root, n))
+            for root, _, names in os.walk(tmp) for n in names)
         # Keep the previous checkpoint alive until the new one is in
         # place: path -> path.old, tmp -> path, then drop path.old. A
         # crash at any point leaves path or path.old restorable.
@@ -434,6 +460,85 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
     return stats
 
 
+def _archive_manifest(tiered):
+    """(meta["archive"], [(file name, segment)]) of a tiered store.
+    Called under the hot store's ``_lock`` after the gather. The
+    manifest cuts at the SEALED frontier, not the pull clock: with an
+    async sealer ``_cap_upto`` can run ahead of the last appended
+    segment, and a restore re-captures only [captured_upto, wp) from
+    the restored rings. The clocks are read BEFORE the segment snapshot
+    (segments only grow, so every window sealed before the read has its
+    segment in the list); the list may then cover gids past
+    captured_upto, a harmless superset (reads dedupe by gid)."""
+    hot = tiered.hot
+    with hot._cap_lock, hot._seal_lock:
+        captured_upto = int(min(hot._cap_upto, hot._sealed_upto))
+    segs = tiered.archive.snapshot()
+    meta = {
+        "params": tiered.params._asdict(),
+        "captured_upto": captured_upto,
+        "segments": [
+            {"seg_id": s.seg_id, "gid_lo": s.gid_lo, "gid_hi": s.gid_hi,
+             "n_spans": s.n_spans, "file": f"seg-{s.seg_id:08d}.bin"}
+            for s in segs
+        ],
+    }
+    return meta, [(f"seg-{s.seg_id:08d}.bin", s) for s in segs]
+
+
+def _write_segments(tmp: str, path: str, seg_blobs, stats: dict) -> None:
+    """Write the segment blobs under ``tmp/segments``. Segments are
+    immutable, so a blob the live snapshot at ``path`` already holds is
+    hard-linked (or copied) instead of serialized again — a save costs
+    O(new segments), not O(history). Reuse is gated on the blob's own
+    header matching the live segment (id, gid range, row count, size),
+    not on the file name: a restored older lineage can mint a seg id
+    again."""
+    seg_dir = os.path.join(tmp, _SEGMENTS_DIR)
+    os.makedirs(seg_dir)
+    prev_dir = os.path.join(path, _SEGMENTS_DIR)
+    for fname, seg in seg_blobs:
+        dest = os.path.join(seg_dir, fname)
+        prev = os.path.join(prev_dir, fname)
+        if _segment_blob_matches(prev, seg):
+            try:
+                os.link(prev, dest)
+            except OSError:
+                try:
+                    shutil.copyfile(prev, dest)
+                except OSError:
+                    prev = None
+            if prev is not None:
+                stats["reused_segments"] = stats.get(
+                    "reused_segments", 0) + 1
+                continue
+        with open(dest, "wb") as f:
+            f.write(seg.to_bytes())
+
+
+def _segment_blob_matches(blob_path: str, seg) -> bool:
+    """True iff the blob at ``blob_path`` has the SAME identity header
+    as the live segment — a header-only read, never the full blob."""
+    import struct
+
+    try:
+        with open(blob_path, "rb") as f:
+            head = f.read(9)
+            if head[:5] != b"ZSEG1":
+                return False
+            (hlen,) = struct.unpack(">I", head[5:9])
+            if hlen > 1 << 22:
+                return False
+            header = json.loads(f.read(hlen).decode("utf-8"))
+    except (OSError, ValueError, struct.error):
+        return False
+    return (header.get("seg_id") == seg.seg_id
+            and header.get("gid_lo") == seg.gid_lo
+            and header.get("gid_hi") == seg.gid_hi
+            and header.get("n_spans") == seg.n_spans
+            and header.get("comp_bytes") == seg.comp_bytes)
+
+
 def exists(path) -> bool:
     """True when ``load(path)`` has a snapshot to restore — the
     directory itself, or the ``.old`` fallback a crash mid-swap leaves
@@ -456,10 +561,11 @@ def _load_dicts(d: dict) -> DictionarySet:
 
 
 def load(path: str, device="cuda", config_defaults=None,
-         stats: Optional[dict] = None) -> TorchSpanStore:
+         stats: Optional[dict] = None):
     """Restore a TorchSpanStore on ``device`` from a snapshot directory
     written by either package (falling back to ``.old`` if a save
-    crashed mid-swap).
+    crashed mid-swap); a tiered snapshot (``meta["archive"]``) restores
+    as a ``TieredSpanStore`` around it.
 
     ``config_defaults`` fills config keys the snapshot's meta does NOT
     carry (a knob newer than the snapshot) — keys in the meta always
@@ -475,10 +581,6 @@ def load(path: str, device="cuda", config_defaults=None,
         raise NotImplementedError(
             "sharded snapshots restore into sharded stores, which the "
             "port does not have yet (ROADMAP Queue 1, item 7)")
-    if meta.get("archive"):
-        raise NotImplementedError(
-            "tiered snapshots need the capture/cold tier, which the port "
-            "does not have yet (ROADMAP Queue 1, item 2)")
     cfg_map = dict(meta["config"])
     for k, v in (config_defaults or {}).items():
         cfg_map.setdefault(k, v)
@@ -636,10 +738,70 @@ def load(path: str, device="cuda", config_defaults=None,
                     _to_host(store.state.row_gid),
                     _to_host(store.state.trace_id),
                     wal_applied=store._wal_applied)
+    arch = meta.get("archive")
+    if arch:
+        store = _restore_tiered(path, store, arch,
+                                exact_clocks=bool(meta.get("clocks")))
     if stats is not None:
         stats.update(times)
         stats["total_s"] = time.perf_counter() - t_start
     return store
+
+
+def _restore_tiered(path: str, store, arch: dict,
+                    exact_clocks: bool = False):
+    """Rebuild the TieredSpanStore around a restored hot store: the
+    segments load from their blobs, then either the saved capture
+    clocks stand (``exact_clocks``, revision 13+: capture resumes
+    mid-stride, so a WAL replay cuts the uncrashed drive's windows) or
+    the capture clock restarts at the segments' CONTIGUOUS frontier and
+    one ``capture_now`` flushes the resident uncaptured window, which
+    re-aligns the side-ring clocks (their host mirrors do not survive a
+    restart; the overlap with the ring is deduped by gid)."""
+    from zipkin_tpu_torch.store.archive import (
+        ArchiveParams,
+        Segment,
+        SegmentDirectory,
+        TieredSpanStore,
+    )
+
+    params = ArchiveParams(**arch["params"])
+    directory = SegmentDirectory(params, store.codec)
+    segs = []
+    for ent in arch["segments"]:
+        with open(os.path.join(path, _SEGMENTS_DIR, ent["file"]),
+                  "rb") as f:
+            segs.append(Segment.from_bytes(f.read()))
+    sizes = (len(store.dicts.services), len(store.dicts.span_names),
+             len(store.dicts.annotations), len(store.dicts.binary_keys),
+             len(store.dicts.binary_values), len(store.dicts.endpoints))
+    for seg in segs:
+        # Every id a segment references lies below its seal-time
+        # dictionary marks; the restored dictionaries must cover them.
+        if any(have < need for have, need in zip(sizes, seg.dict_sizes)):
+            raise ValueError(
+                f"segment {seg.seg_id} references dictionary ids past "
+                f"the restored dictionaries ({sizes} < "
+                f"{seg.dict_sizes}); snapshot is inconsistent")
+    directory.restore(segs, max((s.seg_id for s in segs), default=-1) + 1)
+    tiered = TieredSpanStore(store, params=params, directory=directory)
+    if exact_clocks:
+        return tiered
+    # Walk contiguity, not max(gid_hi): where a failed async seal left
+    # a hole, the frontier stops below it so the flush re-captures what
+    # of it the restored rings still hold.
+    frontier = int(arch.get("captured_upto", 0))
+    for s in sorted(segs, key=lambda s: s.gid_lo):
+        if s.gid_lo <= frontier:
+            frontier = max(frontier, s.gid_hi)
+    with store._cap_lock:
+        store._cap_upto = min(frontier, store._wp)
+        store._cap_a = store._cap_b = 0
+        with store._seal_lock:
+            store._sealed_upto = store._cap_upto
+    store._awp = store._bwp = 0
+    tiered.capture_now()
+    return tiered
 
 
 def _migrate_legacy_live_links(data, upd, config) -> None:

@@ -1915,6 +1915,47 @@ def gather_trace_rows(state: StoreState, sorted_qids, k_spans: int,
     return counts, span_mat, ann_mat, bann_mat
 
 
+def capture_eviction_rows(state: StoreState, lo: int, hi: int,
+                          k_spans: int, k_anns: int, k_banns: int):
+    """Eviction capture: every ring row (span, annotation, binary) whose
+    SPAN gid lies in [lo, hi), compacted to the front in insertion order:
+    (counts [3], span_mat, ann_mat, bann_mat), the matrices of
+    ``gather_trace_rows``, so the host decode is shared. A pure read: no
+    leaf changes, and every output is a fresh tensor (a gather, a stack
+    or a where), never a view of the state, so later in-place steps
+    cannot reach what the sealer copies out. On a paged store span rows
+    order by gid (their insertion order; slot position is a page
+    assignment). The annotation and binary tails past their counts are
+    -1; the span tail is whatever the sort put there, as in the
+    reference (callers read the first ``counts[0]`` columns).
+
+    The caller pulls BEFORE any of the three rings can overwrite a row
+    of the window (``TorchSpanStore._maybe_capture`` tracks all three
+    write cursors), so every captured span is complete."""
+    c = state.config
+    span_in = (state.row_gid >= lo) & (state.row_gid < hi)
+    ann_in = (state.ann_gid >= lo) & (state.ann_gid < hi)
+    bann_in = (state.bann_gid >= lo) & (state.bann_gid < hi)
+    if c.paged_enabled:
+        skey = torch.where(span_in, I64_MAX - state.row_gid,
+                           torch.full_like(state.row_gid, -1))
+        sel = _topk_desc(skey, k_spans)[1]
+    else:
+        sel = _oldest_k(span_in, state.write_pos, c.capacity, k_spans)
+    span_mat = _mat(state, SPAN_MAT_COLS, sel)
+    a_sel = _oldest_k(ann_in, state.ann_write_pos, c.ann_capacity, k_anns)
+    ann_mat = _mat(state, ANN_MAT_COLS, a_sel)
+    ann_mat = torch.where(ann_in[a_sel][None], ann_mat,
+                          torch.full_like(ann_mat, -1))
+    b_sel = _oldest_k(bann_in, state.bann_write_pos, c.bann_capacity,
+                      k_banns)
+    bann_mat = _mat(state, BANN_MAT_COLS, b_sel)
+    bann_mat = torch.where(bann_in[b_sel][None], bann_mat,
+                           torch.full_like(bann_mat, -1))
+    counts = torch.stack([span_in.sum(), ann_in.sum(), bann_in.sum()])
+    return counts, span_mat, ann_mat, bann_mat
+
+
 def gather_paged_trace_rows(state: StoreState, sorted_qids, pages, epochs,
                             k_spans: int, k_anns: int, k_banns: int):
     """Paged twin of gather_trace_rows: span rows come from the page

@@ -1,7 +1,7 @@
 """Pipelined ingest (host side), torch side.
 
-The port's ``IngestPipeline`` (``zipkin_tpu/store/pipeline.py``; the
-asynchronous ``EvictionSealer`` comes with the capture slice): a
+The port's ``IngestPipeline`` and ``EvictionSealer``
+(``zipkin_tpu/store/pipeline.py``). The ingest pipeline is a
 three-stage software pipeline over the store's write path.
 
 1. **produce** (caller threads, under the store's encode lock): encode,
@@ -34,6 +34,12 @@ Error semantics match the reference: a worker failure parks the error,
 the failed unit is dropped (counted done, so blocked producers always
 unblock), and the parked error re-raises once on the next feed or
 drain, after which the stage keeps processing.
+
+The ``EvictionSealer`` moves a capture window's device-to-host copy,
+decode and seal off the write path (the daemon's ``--capture-backlog``):
+the store's pull stays synchronous, the sealer thread copies the pulled
+matrices out on a stream of its own and hands the rows to the eviction
+sink.
 """
 
 from __future__ import annotations
@@ -60,10 +66,12 @@ class IngestUnit(NamedTuple):
     state lock, in the same hold as the step, so a checkpoint cut is
     always consistent with its manifest sequence. ``sketch`` is
     the unit's host sketch-mirror delta (``store/mirror.py``), folded
-    in by the commit under the state lock. ``staged`` is set by stage
-    2: (the unit's per-step device batches, the device buffer they are
-    views of, the CUDA event that marks its copy done); the last two are
-    None off CUDA."""
+    in by the commit under the state lock. ``reclaims`` are the (lo, hi)
+    gid ranges of the pages a paged unit's plan reclaims, captured for
+    the cold tier before the launch that invalidates them. ``staged``
+    is set by stage 2: (the unit's per-step device batches, the device
+    buffer they are views of, the CUDA event that marks its copy done);
+    the last two are None off CUDA."""
 
     db: object
     n_spans: int
@@ -73,6 +81,7 @@ class IngestUnit(NamedTuple):
     chained: bool
     wal_seq: Optional[int] = None
     sketch: Optional[object] = None
+    reclaims: tuple = ()
     staged: Optional[tuple] = None
 
 
@@ -301,3 +310,141 @@ class IngestPipeline(_StageBase):
 
     def queued(self) -> int:
         return self._prefetch.qsize() + self._staged.qsize()
+
+
+class EvictionSealer(_StageBase):
+    """Background seal stage for eviction capture: the device-to-host
+    copy of a pulled window, its decode and seal, and the directory
+    append, off the write path. The PULL stays synchronous in
+    ``TorchSpanStore._capture_window`` (the captured-before-overwrite
+    order); this thread only touches the pull's OUTPUT tensors, which no
+    ingest step writes, so it needs no store lock.
+
+    On CUDA the copy runs on a stream of its own: ``submit`` records an
+    event on the pulling thread's stream after the pull, the copy
+    stream waits on it, and the matrices are ``record_stream``-ed onto
+    the copy stream, so the caching allocator cannot hand their memory
+    to a later step before the copy has read it."""
+
+    def __init__(self, store, backlog: int = 4, registry=None):
+        from zipkin_tpu_torch import obs
+
+        super().__init__()
+        self._store = store
+        self.backlog = max(1, int(backlog))
+        self._q: "queue.Queue" = queue.Queue(maxsize=self.backlog)
+        self._d2h = self._cuda_index = None
+        device = store.device
+        if device.type == "cuda":
+            self._cuda_index = (device.index if device.index is not None
+                                else torch.cuda.current_device())
+            self._d2h = torch.cuda.Stream(self._cuda_index)
+        reg = registry or obs.default_registry()
+        self._registry = reg
+        self.g_backlog = reg.register(obs.Gauge(
+            "zipkin_store_capture_backlog",
+            "Pulled-but-unsealed eviction capture windows in flight",
+            fn=lambda: float(self._q.qsize())))
+        self.c_stall = reg.register(obs.Counter(
+            "zipkin_store_capture_stall_seconds_total",
+            "Seconds the write path blocked on a full capture-seal "
+            "backlog (sealer backpressure)"))
+        self.c_sealed = reg.register(obs.Counter(
+            "zipkin_store_capture_windows_sealed_total",
+            "Capture windows sealed into cold segments"))
+        self.c_errors = reg.register(obs.Counter(
+            "zipkin_store_capture_seal_errors_total",
+            "Capture windows whose async seal failed (window lost "
+            "from the cold tier; error re-raised on the write path)"))
+        self._worker = threading.Thread(
+            target=self._loop, name="zipkin-capture-seal", daemon=True)
+        self._worker.start()
+
+    def submit(self, n_s: int, n_a: int, n_b: int,
+               s_m, a_m, b_m, lo: int, hi: int,
+               pull_s: float) -> None:
+        """Hand one pulled window (device-resident row matrices) to
+        the sealer. Blocks when ``backlog`` windows are in flight —
+        the ONLY way capture can stall ingest. Raises a parked error
+        from an earlier failed seal (matching the inline path, where a
+        sink failure surfaced on the write path that triggered it)."""
+        self._check_feedable()
+        pulled = None
+        if self._d2h is not None:
+            pulled = torch.cuda.Event()
+            pulled.record()
+        full = self._q.full()  # see IngestPipeline.feed: full-at-entry
+        t0 = time.perf_counter()
+        self._q.put((n_s, n_a, n_b, s_m, a_m, b_m, lo, hi, pull_s,
+                     pulled))
+        stall = time.perf_counter() - t0
+        if full and stall > 1e-4:
+            self.c_stall.inc(stall)
+
+    def _loop(self) -> None:
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        while True:
+            item = self._q.get()
+            if item is _STOP:
+                return
+            try:
+                self._seal(item)
+                self.c_sealed.inc()
+            except BaseException as e:  # noqa: BLE001 — parked, re-raised
+                # The window is LOST from the cold tier (its rows may
+                # already be overwritten in the rings) — counted, and
+                # the error fails the next write/barrier ONCE; later
+                # windows still seal. The sealed frontier does not
+                # advance, so a checkpoint cut never claims the hole.
+                self.c_errors.inc()
+                self._park_error(e)
+            finally:
+                self._mark_done()
+
+    def _seal(self, item) -> None:
+        from zipkin_tpu_torch.store.torch_store import mats_to_batch
+        from zipkin_tpu_torch.testing.crash import kill_point
+
+        n_s, n_a, n_b, s_m, a_m, b_m, lo, hi, pull_s, pulled = item
+        t0 = time.perf_counter()
+        host = fetch_mats((s_m, a_m, b_m), self._d2h, pulled)
+        batch, gids = mats_to_batch(n_s, n_a, n_b, *host)
+        sink = self._store.eviction_sink
+        if sink is None:
+            # Sink detached with windows still in flight: no segment
+            # was written, so the frontier must NOT advance — leaving
+            # the hole visible keeps a later checkpoint cut from
+            # claiming a window the cold tier never got.
+            return
+        kill_point("mid-seal")
+        sink(batch, gids, lo, hi, pull_s + (time.perf_counter() - t0))
+        self._store._note_sealed(lo, hi)
+
+    def stop(self) -> None:
+        """Seal everything in flight, then stop. Never raises."""
+        with self._cond:
+            self._closed = True
+        self._wait_idle()
+        self._q.put(_STOP)
+        self._worker.join(timeout=30.0)
+        self._unregister(self._registry, (
+            self.g_backlog, self.c_stall, self.c_sealed, self.c_errors,
+        ))
+
+    def queued(self) -> int:
+        return self._q.qsize()
+
+
+def fetch_mats(mats, stream=None, after=None):
+    """The pulled matrices as numpy arrays. With a CUDA ``stream`` the
+    copy runs there, after the event ``after`` (recorded behind the
+    pull), each matrix ``record_stream``-ed onto it first; without one
+    (inline sealing, or CPU tensors) on the current stream."""
+    if stream is None:
+        return [m.detach().cpu().numpy() for m in mats]
+    with torch.cuda.stream(stream):
+        stream.wait_event(after)
+        for m in mats:
+            m.record_stream(stream)
+        return [m.cpu().numpy() for m in mats]

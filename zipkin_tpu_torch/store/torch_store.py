@@ -27,10 +27,17 @@ planned launch group is journaled before its commit (the kill points
 reference has them), and ``_commit_unit`` stamps the applied sequence
 with the host clocks under the state lock, so ``checkpoint.save`` cuts
 a state, clocks and sequence that belong together and
-``wal.recover`` replays the tail through the same commit body. Not
-ported yet (later slices): eviction capture and the cold tier (the
-capture clocks stay 0, as on a reference store without a sink), the
-query engine, the native thrift fast path, sharding and the daemon.
+``wal.recover`` replays the tail through the same commit body.
+
+Eviction capture: with an ``eviction_sink`` attached (a
+``store/archive.TieredSpanStore`` attaches its own), every commit first
+pulls the rows it would overwrite — on a ring store the whole
+uncaptured window [cap_upto, write_pos) once any of the three rings
+would lap it (``_maybe_capture``), on a paged store each page its plan
+reclaims (``_capture_pages``) — and the sink seals them into a cold
+segment, inline or, with ``capture_backlog > 0``, on the
+``EvictionSealer`` thread. Not ported yet (later slices): the query
+engine, the native thrift fast path, sharding and the daemon.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from zipkin_tpu_torch.store.base import (
     TraceIdDuration,
     apply_pin_merges,
     durations_from_mat,
+    escalate_cap,
     exist_from_duration_mat,
     fill_pin,
     gather_with_escalation,
@@ -80,8 +88,10 @@ from zipkin_tpu_torch.store.base import (
 from zipkin_tpu_torch.store.mirror import SketchMirror
 from zipkin_tpu_torch.store.paged import PagePlanner
 from zipkin_tpu_torch.store.pipeline import (
+    EvictionSealer,
     IngestPipeline,
     IngestUnit,
+    fetch_mats,
     unit_batches,
 )
 from zipkin_tpu_torch.testing.crash import kill_point
@@ -242,19 +252,32 @@ def name_lc_ids(batch: SpanBatch, dicts: DictionarySet,
     return out
 
 
+def _owner_rows(gids: np.ndarray, owner: np.ndarray) -> np.ndarray:
+    """Row of each ``owner`` gid in ``gids`` (int32), 0 where absent and
+    the last row where a gid repeats — the reference's dict lookup,
+    vectorized (a capture window holds millions of rows)."""
+    if not gids.size:
+        return np.zeros(owner.shape, np.int32)
+    order = np.argsort(gids, kind="stable")
+    pos = np.searchsorted(gids[order], owner, side="right") - 1
+    posc = np.clip(pos, 0, gids.size - 1)
+    hit = (pos >= 0) & (gids[order[posc]] == owner)
+    return np.where(hit, order[posc], 0).astype(np.int32)
+
+
 def mats_to_batch(n_s, n_a, n_b, span_mat, ann_mat, bann_mat):
-    """(SpanBatch, per-row gids) from the gathered stacked matrices."""
+    """(SpanBatch, per-row gids) from the gathered or captured stacked
+    matrices (spans in insertion order); the side rows point at their
+    span by gid."""
     batch = SpanBatch.empty(n_s, n_a, n_b)
     for i, col in enumerate(dev.SPAN_MAT_COLS[:-1]):
         tgt = getattr(batch, col)
         setattr(batch, col, span_mat[i, :n_s].astype(tgt.dtype))
     gids = span_mat[len(dev.SPAN_MAT_COLS) - 1, :n_s].astype(np.int64)
-    gid_to_local = {int(g): i for i, g in enumerate(gids)}
     if n_a:
         a = {name: ann_mat[i, :n_a]
              for i, name in enumerate(dev.ANN_MAT_COLS)}
-        batch.ann_span_idx = np.array(
-            [gid_to_local.get(int(g), 0) for g in a["ann_gid"]], np.int32)
+        batch.ann_span_idx = _owner_rows(gids, a["ann_gid"])
         batch.ann_ts = a["ann_ts"]
         batch.ann_value_id = a["ann_value_id"].astype(np.int32)
         batch.ann_service_id = a["ann_service_id"].astype(np.int32)
@@ -262,8 +285,7 @@ def mats_to_batch(n_s, n_a, n_b, span_mat, ann_mat, bann_mat):
     if n_b:
         b = {name: bann_mat[i, :n_b]
              for i, name in enumerate(dev.BANN_MAT_COLS)}
-        batch.bann_span_idx = np.array(
-            [gid_to_local.get(int(g), 0) for g in b["bann_gid"]], np.int32)
+        batch.bann_span_idx = _owner_rows(gids, b["bann_gid"])
         batch.bann_key_id = b["bann_key_id"].astype(np.int32)
         batch.bann_value_id = b["bann_value_id"].astype(np.int32)
         batch.bann_type = b["bann_type"].astype(np.uint8)
@@ -317,6 +339,11 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
     # The ingest pipeline's default prefetch depth and its staged units.
     PIPELINE_DEPTH = 8
     STAGE_BUFFERS = 2
+    # Default async-seal backlog: 0 seals inline on the write path (the
+    # library default, deterministic timing); deployments that want the
+    # seal off the critical path set capture_backlog > 0 (the daemon's
+    # --capture-backlog does).
+    CAPTURE_BACKLOG = 0
 
     def __init__(self, config: Optional[dev.StoreConfig] = None,
                  codec: Optional[SpanCodec] = None, device="cuda",
@@ -347,16 +374,36 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         self._wp = 0
         self._archived = 0
         self._batches_since_sweep = 0
-        # Host mirrors of the side rings' write cursors, and the
-        # eviction-capture clocks. Nothing captures yet (the cold-tier
-        # slice), so the capture clocks stay 0, as on a reference store
-        # without an eviction sink; checkpoints carry them all.
+        # Eviction capture (cold tier, store/archive): with a sink
+        # attached, the write path pulls every ring row BEFORE any of the
+        # three rings can overwrite it. _awp/_bwp mirror the side rings'
+        # write cursors (host-side, no device sync); a capture window is
+        # [_cap_upto, _wp) with exactly _awp - _cap_a annotation and
+        # _bwp - _cap_b binary rows (a batch's side rows belong to its
+        # own spans). sink(batch, gids, gid_lo, gid_hi, pull_seconds).
+        # Checkpoints carry every clock.
+        self.eviction_sink = None
         self._awp = 0
         self._bwp = 0
-        self._cap_upto = 0
-        self._cap_a = 0
-        self._cap_b = 0
-        self._sealed_upto = 0
+        self._cap_upto = 0  # guarded-by: _cap_lock
+        self._cap_a = 0  # guarded-by: _cap_lock
+        self._cap_b = 0  # guarded-by: _cap_lock
+        # Async sealing (store/pipeline.EvictionSealer): with
+        # capture_backlog > 0 the write path only PULLS a window and the
+        # sealer thread copies, decodes and seals it. _sealed_upto trails
+        # _cap_upto by the windows in flight; checkpoints cut at it.
+        # _cap_lock serializes window capture between the serial writer
+        # (under _lock) and the pipeline's commit thread, and is taken
+        # BEFORE _state_lock (the pull reads the state). _sealed_upto has
+        # a leaf lock of its own: checkpoint.save waits for the sealer
+        # while it holds _state_lock, and a commit thread can hold
+        # _cap_lock while it waits for _state_lock, so a sealer that
+        # needed _cap_lock to publish its frontier would deadlock them.
+        self.capture_backlog = self.CAPTURE_BACKLOG
+        self._sealer: Optional[EvictionSealer] = None
+        self._sealed_upto = 0  # guarded-by: _seal_lock
+        self._cap_lock = threading.Lock()
+        self._seal_lock = threading.Lock()
         # Durable write-ahead log (wal/): when attached, every planned
         # launch group is journaled (stage-1 output + dictionary delta)
         # BEFORE its commit; _wal_applied is the highest sequence whose
@@ -667,11 +714,13 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
                 return None
         chunks = [None] * len(group)
         pad_rc = 1
+        reclaims = ()
         if self._planner is not None:
             plan = self._planner.plan_unit(
                 [np.asarray(b.trace_id) for b, _, _ in group],
                 wal_seq=wal_seq)
             chunks = plan.chunks
+            reclaims = plan.reclaims
             pad_rc = _next_pow2(max(
                 [1] + [len(cp.reclaim_pages) for cp in chunks]))
 
@@ -691,7 +740,7 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
                 pad_banns=_next_pow2(b.n_binary), error_flag=err_of(b),
                 **paged_cols(chunks[0]))
             return IngestUnit(db, b.n_spans, b.n_annotations, b.n_binary,
-                              1, False, sketch=sketch)
+                              1, False, sketch=sketch, reclaims=reclaims)
         pad_s = _next_pow2(max(b.n_spans for b, _, _ in group))
         pad_a = _next_pow2(max(b.n_annotations for b, _, _ in group))
         pad_b = _next_pow2(max(b.n_binary for b, _, _ in group))
@@ -705,19 +754,26 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
             sum(b.n_spans for b, _, _ in group),
             sum(b.n_annotations for b, _, _ in group),
             sum(b.n_binary for b, _, _ in group), len(group), True,
-            sketch=sketch)
+            sketch=sketch, reclaims=reclaims)
 
     def _commit_unit(self, unit: IngestUnit) -> None:
         """The device commit behind both write modes (inline under
         ``_lock`` on the serial path; alone on the pipeline's commit
-        thread): bucket-close trigger, the in-place step(s), the sketch
-        mirror fold, host clocks and the sweep cadence. A unit the
-        pipeline staged brings its device batches; the step waits for
-        their copy. A paged unit's step invalidates the pages it
-        reclaims; the reference captures their rows for the cold tier
-        first, which the port does not have yet: reclaimed rows are not
-        captured until that slice lands."""
+        thread): eviction-capture trigger, bucket-close trigger, the
+        in-place step(s), the sketch mirror fold, host clocks and the
+        sweep cadence. A unit the pipeline staged brings its device
+        batches; the step waits for their copy. Capture comes first:
+        a ring store pulls the uncaptured window once the unit would
+        lap it; a paged unit's step invalidates the pages it reclaims,
+        so their rows are pulled before it (page-granular capture; the
+        ring trigger's [cap_upto, wp) arithmetic is FIFO-gid
+        arithmetic and stays off)."""
         self.ensure_writable()
+        if self._planner is not None:
+            if unit.reclaims:
+                self._capture_pages(unit.reclaims)
+        else:
+            self._maybe_capture(unit.n_spans, unit.n_anns, unit.n_banns)
         self._maybe_archive(unit.n_spans)
         if unit.staged is None:
             batches = [dev.batch_to_device(b, self.device)
@@ -765,6 +821,159 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
             self._archived = min(self._wp, max(self._wp + incoming - cap,
                                                self._wp - cap // 2))
 
+    # -- eviction capture (cold tier, store/archive) --------------------
+
+    def _maybe_capture(self, n_s: int, n_a: int, n_b: int) -> None:
+        """Eviction capture trigger, called BEFORE every device write
+        with the incoming row counts: if the write would overwrite any
+        uncaptured row of ANY of the three rings (the annotation rings
+        lap faster than the span ring whenever spans average more side
+        rows than the capacity ratio), pull the whole uncaptured window
+        [_cap_upto, _wp) and hand it to the sink. The pull is its own
+        read-only launch; the ingest step is unchanged."""
+        if self.eviction_sink is None:
+            return
+        c = self.config
+        with self._cap_lock:
+            if (self._wp + n_s - self._cap_upto <= c.capacity
+                    and self._awp + n_a - self._cap_a <= c.ann_capacity
+                    and self._bwp + n_b - self._cap_b
+                    <= c.bann_capacity):
+                return
+            self._capture_window()
+
+    def _capture_window(self) -> None:  # called-under: _cap_lock
+        """Pull the whole uncaptured window [cap_upto, wp) — the one
+        capture body behind the write-path trigger and capture_now.
+        The pull is synchronous (the overwriting step must not run
+        before it has read the rows); with capture_backlog > 0 the rows
+        stay on the device and the copy, decode and seal move to the
+        sealer thread, whose bounded queue is the only thing that can
+        stall ingest."""
+        lo, hi = self._cap_upto, self._wp
+        if hi <= lo:
+            self._cap_upto, self._cap_a, self._cap_b = (
+                self._wp, self._awp, self._bwp)
+            return
+        t0 = time.perf_counter()
+        pulled = self._pull_evicted_rows(lo, hi, self._awp - self._cap_a,
+                                         self._bwp - self._cap_b)
+        self._hand_off(pulled, lo, hi, t0)
+        # Clocks advance only AFTER the pull succeeds: a transient
+        # device error mid-pull leaves the window uncaptured but
+        # resident, and the next write retries it. (An async seal
+        # failure after a good pull is counted and re-raised on the
+        # write path; its window cannot be retried, and checkpoints cut
+        # at the SEALED frontier so a snapshot never claims it.)
+        self._cap_upto, self._cap_a, self._cap_b = (
+            self._wp, self._awp, self._bwp)
+
+    def _capture_pages(self, reclaims) -> None:
+        """Paged eviction capture: pull each reclaimed page's rows (one
+        [lo, hi) = one page's gid range) through the ring window's
+        pull and seal, before the claiming unit's launch. The sealed
+        frontier stays contiguity-gated: least-recently-written reclaim
+        hands pages back out of gid order, so the frontier lags the
+        newest sealed page until the live pages below it are reclaimed
+        too (a checkpoint never claims a live page's gids as cold)."""
+        if self.eviction_sink is None:
+            return
+        c = self.config
+        with self._cap_lock:
+            for lo, hi in reclaims:
+                t0 = time.perf_counter()
+                pulled = self._pull_evicted_rows(lo, hi, c.page_rows * 2,
+                                                 c.page_rows)
+                self._hand_off(pulled, lo, hi, t0)
+
+    def _hand_off(self, pulled, lo: int, hi: int,
+                  t0: float) -> None:  # called-under: _cap_lock
+        """Seal one pulled window: queue it on the sealer when
+        capture_backlog > 0, else copy, seal and advance the sealed
+        frontier inline."""
+        n_s, n_a, n_b, s_m, a_m, b_m = pulled
+        pull_s = time.perf_counter() - t0
+        if self.capture_backlog and self.capture_backlog > 0:
+            if self._sealer is None:
+                self._sealer = EvictionSealer(
+                    self, backlog=self.capture_backlog,
+                    registry=self._registry)
+            self._sealer.submit(n_s, n_a, n_b, s_m, a_m, b_m, lo, hi,
+                                pull_s)
+            return
+        batch, gids = mats_to_batch(n_s, n_a, n_b,
+                                    *fetch_mats((s_m, a_m, b_m)))
+        kill_point("mid-seal")
+        self.eviction_sink(batch, gids, lo, hi, time.perf_counter() - t0)
+        self._note_sealed(lo, hi)
+
+    def _pull_evicted_rows(self, lo: int, hi: int, n_anns: int,
+                           n_banns: int):
+        """One capture window as (n_s, n_a, n_b, span_mat, ann_mat,
+        bann_mat), the matrices still on the device: only the [3]
+        counts sync. The host mirrors predict the side-row counts
+        exactly; the escalation loop guards, it is not the steady
+        state."""
+        c = self.config
+        k_s = min(_next_pow2(hi - lo), c.capacity)
+        k_a = min(_next_pow2(max(n_anns, 1)), c.ann_capacity)
+        k_b = min(_next_pow2(max(n_banns, 1)), c.bann_capacity)
+        while True:
+            with self._state_lock:
+                counts, s_m, a_m, b_m = dev.capture_eviction_rows(
+                    self.state, lo, hi, k_s, k_a, k_b)
+                n_s, n_a, n_b = (int(x) for x in counts.tolist())
+            if n_s <= k_s and n_a <= k_a and n_b <= k_b:
+                return n_s, n_a, n_b, s_m, a_m, b_m
+            k_s = escalate_cap(n_s, k_s, c.capacity)
+            k_a = escalate_cap(n_a, k_a, c.ann_capacity)
+            k_b = escalate_cap(n_b, k_b, c.bann_capacity)
+
+    def _note_sealed(self, lo: int, hi: int) -> None:
+        """Advance the sealed frontier — every gid below it is in the
+        cold tier. Contiguity-gated: if an earlier window's seal failed
+        (a hole), the frontier stays below it as later windows seal, so
+        a checkpoint cut never claims the hole and a restore re-captures
+        what of it the saved rings still hold."""
+        with self._seal_lock:
+            if lo <= self._sealed_upto:
+                self._sealed_upto = max(self._sealed_upto, hi)
+
+    def sealed_frontier(self) -> int:
+        """Cold-tier durability frontier (gid): every span below it is
+        sealed into a cold segment."""
+        with self._seal_lock:
+            return self._sealed_upto
+
+    def seal_barrier(self) -> None:
+        """Wait until every pulled capture window is sealed (no-op
+        without an async sealer); re-raises a parked seal error.
+        Cold-tier reads and checkpoint cuts run behind it, so a
+        captured row is never invisible."""
+        s = self._sealer
+        if s is not None:
+            s.drain()
+
+    def capture_now(self) -> None:
+        """Flush the uncaptured window [cap_upto, write_pos) through the
+        eviction sink and wait for the seal: checkpoint restore uses it
+        to re-align the capture clocks, operators to make the cold tier
+        current before a planned shutdown. A paged store captures at
+        reclaim time only (live pages are never flushed early), so it
+        only drains."""
+        with self._lock:
+            if self.eviction_sink is None:
+                return
+            self.drain_pipeline()
+            if self._planner is None:
+                with self._cap_lock:
+                    self._capture_window()
+            self.seal_barrier()
+
+    def eviction_sealer(self) -> Optional[EvictionSealer]:
+        """The async capture sealer, or None when sealing is inline."""
+        return self._sealer
+
     def archive_now(self) -> None:
         with self._lock, self._state_lock:
             dev.dep_close_bucket(self.state)
@@ -782,21 +991,23 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         The sweep clock is marked dirty, so the first dependency read
         runs a pending sweep; the sketch mirror goes cold and resyncs
         from the device on its next read; a paged store rebuilds its
-        page table from the adopted columns. The reference's seal
-        barrier comes with the capture slice."""
+        page table from the adopted columns. Pulled capture windows are
+        sealed first (the seal barrier); the adopted history predates
+        the sink, so only later evictions are captured."""
         self.drain_pipeline()
+        self.seal_barrier()
         self.ensure_writable()
-        with self._lock, self._state_lock:
+        with self._lock, self._cap_lock, self._state_lock:
             self.state = state
             self._step_seq += 1
             self._wp = int(spans_written)
             self._archived = self._wp if archived is None else int(archived)
             self._batches_since_sweep = 1
-            # The adopted history predates any capture: re-seed the
-            # capture clocks so only later evictions would be captured.
             self._awp = self._bwp = 0
-            self._cap_upto = self._sealed_upto = self._wp
+            self._cap_upto = self._wp
             self._cap_a = self._cap_b = 0
+            with self._seal_lock:
+                self._sealed_upto = self._cap_upto
             self.sketch_mirror.mark_cold()
             if self._planner is not None:
                 self._planner.rebuild(_np(state.row_gid),
@@ -889,8 +1100,13 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
             self.stop_pipeline()
 
     def close(self) -> None:
-        """Stop the pipeline, committing every accepted unit."""
+        """Stop the pipeline (committing every accepted unit, which may
+        capture), then the capture sealer (sealing every pulled
+        window): nothing accepted or captured is dropped."""
         self.stop_pipeline(raise_errors=False)
+        s, self._sealer = self._sealer, None
+        if s is not None:
+            s.stop()
 
     # -- TTL / pins -----------------------------------------------------
 
@@ -1315,6 +1531,9 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         p = self._pipeline
         if p is not None:
             out["pipeline_prefetch_depth"] = float(p.queued())
+        s = self._sealer
+        if s is not None:
+            out["capture_backlog"] = float(s.queued())
         if self._planner is not None:
             pstats = self._planner.stats()
             out["pages_active"] = float(pstats["pages_active"])

@@ -17,8 +17,9 @@ the Nth hit, default the 1st; SIGKILL, so no atexit/finally runs):
 - ``after-commit``    after the device commit, before the ack returns —
   the batch is present though never acked (durability is one-way).
 - ``mid-seal``        between an eviction-capture pull and the cold
-  segment append. Named so the variable parses as it does for the JAX
-  package; the port has no capture/cold tier yet, so nothing hits it.
+  segment append (``_hand_off`` inline, the sealer thread otherwise) —
+  tiered drives (``--tiered``) only; the window is re-captured from
+  the restored rings and the cold frontier stays contiguous.
 - ``mid-checkpoint``  between checkpoint.save's two renames — load
   must fall back to ``.old`` (or a fresh store) + WAL replay.
 - ``mid-truncate``    between per-segment deletes of a checkpoint's
@@ -87,24 +88,25 @@ def kill_point(name: str) -> None:
 # -- shared drive fixtures (child AND parent oracle use these) ----------
 #
 # Geometry note: the serial config never evicts at the drive sizes the
-# tests use (WAL mechanics only). Batches are sized so each apply plans
-# exactly ONE launch unit (<= CHAIN_SIZES[0] trace parts, well under
-# the span/ann budgets) — the child asserts it, see module docstring.
+# tests use (WAL mechanics only); the tiered config's 2^8 ring laps
+# several times, so eviction capture and cold-tier sealing are on the
+# replayed path. Batches are sized so each apply plans exactly ONE
+# launch unit (<= CHAIN_SIZES[0] trace parts, well under the span/ann
+# budgets) — the child asserts it, see module docstring.
 
 _TRACES_PER_BATCH = 6
-
-
-def _no_tiered() -> None:
-    raise NotImplementedError(
-        "tiered crash drives need the capture/cold tier, which the "
-        "port does not have yet (ROADMAP Queue 1, item 2)")
 
 
 def crash_config(tiered: bool = False):
     from zipkin_tpu_torch.store import device as dev
 
     if tiered:
-        _no_tiered()
+        return dev.StoreConfig(
+            capacity=1 << 8, ann_capacity=1 << 10, bann_capacity=1 << 9,
+            max_services=32, max_span_names=64,
+            max_annotation_values=256, max_binary_keys=64,
+            cms_width=1 << 10, hll_p=6, quantile_buckets=256,
+        )
     return dev.StoreConfig(
         capacity=1 << 10, ann_capacity=1 << 12, bann_capacity=1 << 11,
         max_services=32, max_span_names=128, max_annotation_values=256,
@@ -116,10 +118,19 @@ def crash_config(tiered: bool = False):
 def build_crash_store(tiered: bool = False, device="cuda"):
     """A fresh store at the harness geometry — the recovery factory
     and the oracle's constructor (identical construction on both sides is
-    what makes the comparison meaningful)."""
+    what makes the comparison meaningful). Tiered: a TieredSpanStore
+    with the reference harness's archive params."""
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
 
-    return TorchSpanStore(crash_config(tiered), device=device)
+    hot = TorchSpanStore(crash_config(tiered), device=device)
+    if not tiered:
+        return hot
+    from zipkin_tpu_torch.store.archive import ArchiveParams, TieredSpanStore
+
+    return TieredSpanStore(hot, params=ArchiveParams.for_config(
+        hot.config, compact_fanin=2, small_span_limit=hot.config.capacity,
+        bloom_bits=1 << 12, cms_width=1 << 10, hll_p=6,
+    ))
 
 
 def crash_batches(n_batches: int, tiered: bool = False) -> List[list]:
@@ -130,9 +141,7 @@ def crash_batches(n_batches: int, tiered: bool = False) -> List[list]:
 
     from zipkin_tpu_torch.tracegen.gen import generate_traces
 
-    if tiered:
-        _no_tiered()
-    rng = np.random.default_rng(40)
+    rng = np.random.default_rng(41 if tiered else 40)
     traces = generate_traces(
         n_traces=n_batches * _TRACES_PER_BATCH, max_depth=3,
         rng=rng, n_services=8,
@@ -167,8 +176,6 @@ def _child_main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--segment-bytes", type=int, default=64 << 20)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    if args.tiered:
-        _no_tiered()
 
     import torch
 
@@ -182,11 +189,11 @@ def _child_main(argv: Optional[Sequence[str]] = None) -> int:
     wal_dir, ckpt_dir, acked_path = _paths(args.workdir)
     ckpt_at = {int(x) for x in args.ckpt_at.split(",") if x}
 
-    store = build_crash_store(device=args.device)
+    store = build_crash_store(args.tiered, device=args.device)
     wal = WriteAheadLog(wal_dir, fsync=args.fsync,
                         segment_bytes=args.segment_bytes)
     store.attach_wal(wal)
-    batches = crash_batches(args.batches)
+    batches = crash_batches(args.batches, tiered=args.tiered)
 
     acked = open(acked_path, "a")
     for i, batch in enumerate(batches):
@@ -220,8 +227,6 @@ def run_crash_child(workdir: str, point: Optional[str] = None,
                     timeout: float = 600.0, device="cuda"):
     """Spawn the child drive; returns the CompletedProcess. A fired
     kill point shows up as ``returncode == -signal.SIGKILL``."""
-    if tiered:
-        _no_tiered()
     env = dict(os.environ)
     env.pop("ZIPKIN_CRASH_POINT", None)
     if point is not None:
@@ -238,6 +243,8 @@ def run_crash_child(workdir: str, point: Optional[str] = None,
            "--device", str(device)]
     if ckpt_at:
         cmd += ["--ckpt-at", ",".join(str(x) for x in ckpt_at)]
+    if tiered:
+        cmd.append("--tiered")
     return subprocess.run(cmd, env=env, capture_output=True, text=True,
                           timeout=timeout)
 
@@ -261,13 +268,11 @@ def recover_crashed(workdir: str, tiered: bool = False, device="cuda"):
     (store, replay stats, wal)."""
     from zipkin_tpu_torch.wal import WriteAheadLog, recover
 
-    if tiered:
-        _no_tiered()
     wal_dir, ckpt_dir, _ = _paths(workdir)
     wal = WriteAheadLog(wal_dir, fsync="off")
     store, stats = recover(
         ckpt_dir, wal,
-        fresh_store=lambda dev: build_crash_store(device=dev),
+        fresh_store=lambda dev: build_crash_store(tiered, device=dev),
         device=device)
     return store, stats, wal
 
@@ -329,7 +334,10 @@ def verify_recovery(workdir: str, total_batches: int,
        on the CPU; on CUDA every integer leaf and counter bitwise and
        the moments under ``moments_close``;
     3. the first un-applied batch is PROVABLY ABSENT (its trace ids
-       resolve to nothing), never partially applied.
+       resolve to nothing), never partially applied;
+    4. tiered: the cold segments' (gid_lo, gid_hi, n_spans) equal the
+       oracle's, the sealed frontier is contiguous and reaches the
+       capture clock, and federated trace reads equal the oracle's.
 
     Raises AssertionError with context on any violation."""
     import torch
@@ -344,17 +352,35 @@ def verify_recovery(workdir: str, total_batches: int,
         f"{applied} ({stats})")
     assert applied <= total_batches
 
-    batches = crash_batches(total_batches)
-    oracle = build_crash_store(device=device)
+    batches = crash_batches(total_batches, tiered=tiered)
+    oracle = build_crash_store(tiered, device=device)
     for b in batches[:applied]:
         oracle.apply(b)
 
+    hot, ohot = getattr(store, "hot", store), getattr(oracle, "hot", oracle)
     exact = torch.device(device).type == "cpu"
-    bad = state_mismatches(oracle.state, store.state,
+    bad = state_mismatches(ohot.state, hot.state,
                            moments_tolerance=not exact)
     assert not bad, (
         f"recovered state differs from the {applied}-batch oracle in "
         f"{bad} (acked {acked}, {stats})")
+    if tiered:
+        hot.seal_barrier()
+        cold = sorted((s.gid_lo, s.gid_hi, s.n_spans)
+                      for s in store.archive.snapshot())
+        ocold = sorted((s.gid_lo, s.gid_hi, s.n_spans)
+                       for s in oracle.archive.snapshot())
+        assert cold == ocold, (
+            f"cold tier differs: {cold} vs oracle {ocold}")
+        for a, b in zip(cold, cold[1:]):
+            assert a[1] == b[0], f"cold coverage has a hole: {cold}"
+        assert hot.sealed_frontier() == hot._cap_upto, (
+            f"sealed frontier {hot.sealed_frontier()} short of the "
+            f"capture clock {hot._cap_upto}")
+        for b in batches[:applied]:
+            tids = sorted({s.trace_id for s in b})[:3]
+            assert (store.get_spans_by_trace_ids(tids)
+                    == oracle.get_spans_by_trace_ids(tids))
     if applied < total_batches:
         missing = sorted({s.trace_id for s in batches[applied]})
         got = store.get_spans_by_trace_ids(missing)

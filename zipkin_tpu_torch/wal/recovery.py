@@ -73,12 +73,14 @@ def apply_record_into(hot, seq: int, payload: bytes,
 def replay_into(store, wal, from_seq: Optional[int] = None) -> dict:
     """Replay every WAL record with seq > ``from_seq`` (default: the
     store's restored applied frontier) through the normal ingest path.
-    Returns replay stats."""
+    Accepts a TorchSpanStore or a TieredSpanStore (replay routes through
+    the hot store; an attached eviction sink captures and seals exactly
+    as live ingest would). Returns replay stats."""
     if hasattr(wal, "replay_units"):
         raise NotImplementedError(
             "sharded logs replay into sharded stores, which the port "
             "does not have yet (ROADMAP Queue 1, item 7)")
-    hot = store
+    hot = getattr(store, "hot", store)
     if from_seq is None:
         from_seq = int(getattr(hot, "_wal_applied", 0))
     t0 = time.perf_counter()
