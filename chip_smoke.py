@@ -94,7 +94,29 @@ nvcc per source, started together), then
    gather equal to the oracle's;
 12. a tiered store on the card (sealer) against its CPU twin (inline)
    at 2^14 with the window on: equal segment lists and bytes, then a
-   tiered ``checkpoint.save``/``load`` round trip on the card.
+   tiered ``checkpoint.save``/``load`` round trip on the card;
+13. the daemon's ingest front end at full width (``collector_path``):
+   the window store behind the daemon's ``Collector`` (``Sampler(1.0)``,
+   queue 500, 10 workers, self-tracing) and a ``ScribeReceiver`` fast
+   path on a ``ScribeServer``; four Scribe clients send four launches
+   of generated spans (made in worker processes before the clock), 100
+   known traces on services of their own and one corrupt entry, in log
+   calls of 2,048 entries. It fails unless the port's native codec
+   loaded from ``build/zipkin_tpu_torch/``, every span but the corrupt
+   entry is stored, the slow path ran only on the call holding it,
+   each queue item left one self-trace span, the known traces' reads
+   equal the in-memory oracle's, K1 and both K2 halves launched once a
+   step, and the first step's fused K1 call (eight sites) and both K2
+   halves equal their plain versions bitwise; then a sampled launch (rate 0.25, 1% debug) must keep exactly
+   the threshold test's set with the sampler's counts, a durable
+   sub-drive at 2^14 (WAL, ``ingest_thrift_durable``) must recover to
+   the live state, card and CPU collectors must agree at 2^14, and
+   ``recompute_dependencies`` must match the streaming links of the
+   known services within stated tolerance 2. It prints scribe spans/s
+   beside serial ``write_batch`` of the same launches, ack and write
+   latencies, ``write_thrift``'s split (lock wait, parse + intern, chunk
+   + pad, commit) and the idle share over the drive (taken under the
+   CUDA-only profiler, as the drive's spans/s are).
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -110,6 +132,7 @@ tiny size (kernel checks compare twin with twin) and prints no result.
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
 import gc
 import json
@@ -186,6 +209,8 @@ class Scale:
             self.page_max_chain, self.n_big = 3, 6
             self.big_min, self.big_max, self.overflow_spans = 64, 200, 400
             self.cold_known, self.cold_sample = 10, 8
+            self.collector_log2, self.scribe_call = 12, 128
+            self.prep_workers = 2
         else:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
@@ -212,6 +237,12 @@ class Scale:
             # Cold tier: 100 known traces early and late, 20 sampled
             # stream traces of an evicted and of a resident launch.
             self.cold_known, self.cold_sample = 100, 20
+            # The collector phase: the window store at 2^22, log calls
+            # of 2,048 entries, its traffic made in 5 worker processes.
+            self.collector_log2, self.scribe_call = 22, 2048
+            self.prep_workers = 5
+        # Four launches of the stream through the Scribe front end.
+        self.collector_launches = 4
         # Launches past one lap of the span ring: the first capture
         # window (~capacity spans) is pulled and sealed, then three more.
         self.cold_launches = -(-(1 << self.cap_log2)
@@ -269,6 +300,62 @@ def device_ms(torch, fn, kernel, reps: int = 10):
                if e.device_type == DeviceType.CUDA
                and any(n in e.name for n in names))
     return busy / reps / 1e3
+
+
+def union_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    busy = 0.0
+    cur_s = cur_e = None
+    for a, b in sorted(intervals):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+class DeviceIdle:
+    """The card's idle share over a ``with`` block: torch.profiler's
+    CUDA activity only (kernels from every thread), 1 - the union of
+    the device intervals over the block's wall time. ``result`` is None
+    off the card."""
+
+    def __init__(self, torch, device):
+        self.torch, self.on = torch, device.type == "cuda"
+        self.result, self._prof = None, None
+
+    def __enter__(self):
+        if self.on:
+            from torch.profiler import ProfilerActivity, profile
+
+            self.torch.cuda.synchronize()
+            self._prof = profile(activities=[ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if not self.on:
+            return False
+        self.torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - self._t0) * 1e6
+        self._prof.__exit__(*exc)
+        if exc[0] is None:
+            from torch.autograd import DeviceType
+
+            spans = [(e.time_range.start, e.time_range.end)
+                     for e in self._prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            busy = union_us(spans)
+            self.result = {"wall_ms": wall_us / 1e3,
+                           "device_busy_ms": busy / 1e3,
+                           "device_events": len(spans),
+                           "idle_share": max(0.0, 1.0 - busy / wall_us)}
+        return False
 
 
 class Recorder:
@@ -375,20 +462,9 @@ def profile_steps(torch, store, gen, scale, batch_of=None, label="ring"):
             store.write_batch(batch, ix)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy = 0.0
-    cur_s = cur_e = None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = union_us([(e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA])
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1459,8 +1535,11 @@ def cold_reads_vs_oracle(store, oracle, tids, what, lookups=True,
     its annotation rows do not, so a decoded span's timestamps (the
     oracle's) differ from the columns every store reads."""
     from zipkin_tpu_torch.ops.quantile import quantiles_host
+    from zipkin_tpu_torch.store.archive import ArchiveParams
     from zipkin_tpu_torch.store.archive import sketches as SK
 
+    params = getattr(store, "params", None) or ArchiveParams.for_config(
+        store.config)
     ms = []
     for tid in tids:
         t = time.perf_counter()
@@ -1500,16 +1579,17 @@ def cold_reads_vs_oracle(store, oracle, tids, what, lookups=True,
     if got != want or not want:
         fail(f"{what}: dependency links of the cold-tier services "
              f"differ ({len(got)} vs {len(want)})")
-    gamma = store.params.hist_gamma
+    gamma = params.hist_gamma
     qs = [0.5, 0.9, 0.99]
     for svc in COLD_SERVICES:
-        counts = np.zeros(store.params.hist_buckets, np.int64)
+        counts = np.zeros(params.hist_buckets, np.int64)
         SK.hist_add(counts, np.asarray(
             [s.duration for s in oracle.spans
              if s.service_name == svc and s.duration is not None],
             np.int64), gamma)
-        if store.service_duration_quantiles(svc, qs) != quantiles_host(
-                counts, gamma, 1.0, qs):
+        want = quantiles_host(counts, gamma, 1.0, qs) if counts.any() \
+            else None
+        if store.service_duration_quantiles(svc, qs) != want:
             fail(f"{what}: duration quantiles of {svc} differ")
     return ms
 
@@ -1982,6 +2062,587 @@ def cold_tier_parity(torch, dev, scale, rehearse: bool):
 #  applied, acked, tiered): the cases of tests/test_crash.py; mid-seal
 #  kills a tiered drive (2^8 ring, capture on its path) between a
 #  capture pull and the segment append.
+# ---------------------------------------------------------------------------
+# The ingest front end: Scribe server -> collector queue -> write_thrift
+# ---------------------------------------------------------------------------
+
+CORRUPT_ENTRY = b"\xff\xfecorrupt"
+
+
+def scribe_messages(args):
+    """Launch ``i`` of the collector phase's generator (the launches
+    before it drawn and dropped, so every launch matches a serial run),
+    decoded to Span objects, every ``debug_every``-th span debug-flagged,
+    and encoded as base64 scribe messages. Runs in a worker process that
+    imports only the port. Returns (messages, trace ids, debug flags)."""
+    i, seed, n_services, n_names, n_traces, debug_every = args
+    from zipkin_tpu_torch.columnar.encode import SpanCodec
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+    from zipkin_tpu_torch.wire.thrift import span_to_scribe_message
+
+    codec = SpanCodec()
+    gen = ColumnarTraceGen(codec.dicts, n_services=n_services,
+                           n_span_names=n_names, topology=True, seed=seed)
+    for k in range(i + 1):
+        batch, _, _ = gen.next_batch(n_traces,
+                                     base_ts=WIN_BASE_US + k * WIN_STEP_US)
+    spans = codec.decode(batch)
+    debug = np.zeros(len(spans), bool)
+    if debug_every:
+        debug[::debug_every] = True
+        spans = [dataclasses.replace(s, debug=True) if d else s
+                 for s, d in zip(spans, debug)]
+    return ([span_to_scribe_message(s) for s in spans],
+            np.array([s.trace_id for s in spans], np.int64), debug)
+
+
+def prepare_scribe_traffic(scale):
+    """The collector phase's traffic, made before any clock starts: the
+    four stream launches and the sampled launch (1% debug) in worker
+    processes, one a launch; 100 known traces on services of their own,
+    each placed whole at the head of one log call; one corrupt entry in
+    the second call. Returns (stream calls, sampled calls, sampled trace
+    ids and debug flags, known traces, span count sent, prep s)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from zipkin_tpu_torch.wire.thrift import span_to_scribe_message
+
+    t = time.perf_counter()
+    n = scale.collector_launches
+    jobs = [(i, 31, scale.services - len(COLD_SERVICES) - 1,
+             scale.names - len(COLD_OPS) - 1, scale.batch_traces,
+             100 if i == n else 0) for i in range(n + 1)]
+    with ProcessPoolExecutor(max_workers=scale.prep_workers,
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as pool:
+        made = list(pool.map(scribe_messages, jobs))
+    stream = [m for msgs, _, _ in made[:n] for m in msgs]
+    size = scale.scribe_call
+    calls = [[("zipkin", m) for m in stream[i:i + size]]
+             for i in range(0, len(stream), size)]
+    known = cold_known(scale.cold_known, 32, WIN_BASE_US)
+    for k, tr in enumerate(known):
+        head = [("zipkin", span_to_scribe_message(s)) for s in tr]
+        c = k * len(calls) // len(known)
+        calls[c] = head + calls[c]
+    calls[1].insert(len(calls[1]) // 2, (
+        "zipkin", base64.b64encode(CORRUPT_ENTRY).decode()))
+    sent = len(stream) + sum(len(tr) for tr in known)
+    msgs, tids, debug = made[n]
+    sampled = [[("zipkin", m) for m in msgs[i:i + size]]
+               for i in range(0, len(msgs), size)]
+    return (calls, sampled, tids, debug, known, sent,
+            time.perf_counter() - t)
+
+
+def send_calls(host, port, calls, n_clients: int = 4):
+    """``n_clients`` ScribeClient connections share ``calls`` (client c
+    sends calls c, c + n, ...); a client resends a call answered
+    TRY_LATER. Returns (ack ms of each call answered OK, TRY_LATER
+    answers)."""
+    from zipkin_tpu_torch.ingest import ResultCode
+    from zipkin_tpu_torch.ingest.scribe_server import ScribeClient
+
+    acks, retries, errors = [], [0], []
+    lock = threading.Lock()
+
+    def client(c):
+        cl = ScribeClient(host, port, timeout_s=120.0)
+        try:
+            for call in calls[c::n_clients]:
+                while True:
+                    t = time.perf_counter()
+                    code = cl.log(call)
+                    ms = (time.perf_counter() - t) * 1e3
+                    if code is ResultCode.OK:
+                        break
+                    with lock:
+                        retries[0] += 1
+                    time.sleep(0.002)
+                with lock:
+                    acks.append(ms)
+        except Exception as e:  # surfaced below, on the main thread
+            errors.append(e)
+        finally:
+            cl.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        fail(f"collector path: a scribe client failed: {errors[0]!r}")
+    return acks, retries[0]
+
+
+class _WaitedLock:
+    """A store's write lock behind a proxy that adds each acquire's wait
+    to ``waits[thread]`` while ``on(thread)`` holds."""
+
+    def __init__(self, lock, on, waits):
+        self._real, self._on, self._waits = lock, on, waits
+
+    def acquire(self, *a, **kw):
+        t = time.perf_counter()
+        got = self._real.acquire(*a, **kw)
+        if self._on():
+            k = threading.get_ident()
+            self._waits[k] = self._waits.get(k, 0.0) + (
+                time.perf_counter() - t)
+        return got
+
+    def release(self):
+        self._real.release()
+
+    __enter__ = acquire
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+class WriteThriftClock:
+    """Host seconds of ``write_thrift`` on one store and of its parts, by
+    wrapping them: the wait for the store's write lock, the native parse
+    with the sampler's threshold and interning, the index bits, chunk
+    plus pad, and the commit (the launch and the mirror fold). The parts
+    count only inside a ``write_thrift`` call (the self-trace ``apply``
+    shares the helpers); ``held`` is ``write_thrift`` less its lock
+    wait. Installs on construction; ``restore`` removes it."""
+
+    def __init__(self, store):
+        from zipkin_tpu_torch import native
+
+        self.s = {"write_thrift": 0.0, "lock_wait": 0.0, "held": 0.0,
+                  "parse_intern": 0.0, "index_bits": 0.0,
+                  "chunk_pad": 0.0, "commit": 0.0}
+        self._lock = threading.Lock()
+        self._inside = threading.local()
+        self._waits = {}
+        self._store, self._store_lock = store, store._lock
+        store._lock = _WaitedLock(
+            store._lock, lambda: getattr(self._inside, "on", False),
+            self._waits)
+        self._undo = []
+        self._wrap(store, "write_thrift", "write_thrift", outer=True)
+        self._wrap(native, "parse_spans_columnar_sampled", "parse_intern")
+        self._wrap(native, "indexable_from_batch", "index_bits")
+        self._wrap(store, "_chunk_columnar", "chunk_pad", wrap=list)
+        self._wrap(store, "_pad_unit", "chunk_pad")
+        self._wrap(store, "_commit_unit", "commit")
+
+    def _wrap(self, owner, name, key, wrap=None, outer=False):
+        fn = getattr(owner, name)
+
+        def call(*a, **kw):
+            if not outer and not getattr(self._inside, "on", False):
+                return fn(*a, **kw)
+            self._inside.on = True
+            t = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                return out if wrap is None else wrap(out)
+            finally:
+                dt = time.perf_counter() - t
+                with self._lock:
+                    self.s[key] += dt
+                    if outer:
+                        wait = self._waits.pop(threading.get_ident(), 0.0)
+                        self.s["lock_wait"] += wait
+                        self.s["held"] += dt - wait
+                if outer:
+                    self._inside.on = False
+
+        self._undo.append((owner, name, fn, name in vars(owner)))
+        setattr(owner, name, call)
+
+    def restore(self):
+        self._store._lock = self._store_lock
+        for owner, name, fn, own in reversed(self._undo):
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+
+
+def serve(receiver):
+    from zipkin_tpu_torch.ingest.scribe_server import ScribeServer
+
+    server = ScribeServer(receiver, host="127.0.0.1", port=0)
+    server.serve_in_thread()
+    return server
+
+
+def stop_server(server):
+    server.shutdown()
+    server.server_close()
+
+
+def collector_path(torch, K, dev, scale, device, window):
+    """The daemon's ingest front end at full width (``example.py``:
+    ``Collector(store, Sampler(1.0), max_queue=500, concurrency=10,
+    self_trace=True)`` behind a ``ScribeReceiver(collector.accept,
+    process_thrift=collector.accept_thrift)`` on a ``ScribeServer``) in
+    front of the window store: four launches of generated spans plus
+    100 known traces and one corrupt entry, sent by four Scribe clients
+    in log calls of 2,048 entries, then ``flush()``, profiled for the
+    idle share, its first step held against the plain versions of K1
+    and K2; a sampled launch at
+    rate 0.25 (1% debug); a durable sub-drive at 2^14 recovered on the
+    card; card against CPU at 2^14; ``recompute_dependencies``; and the
+    same four launches through serial ``write_batch`` on a fresh store,
+    for the ratio."""
+    from zipkin_tpu_torch import native, obs
+    from zipkin_tpu_torch.aggregate import recompute_dependencies
+    from zipkin_tpu_torch.ingest import Collector, ScribeReceiver
+    from zipkin_tpu_torch.sampler import Sampler
+    from zipkin_tpu_torch.store.memory import InMemorySpanStore
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.testing.crash import moments_close
+
+    if not native.available() or os.path.dirname(os.path.realpath(
+            native.loaded_from)) != os.path.realpath(os.path.join(
+                HERE, "build", "zipkin_tpu_torch")):
+        fail(f"collector path: the native codec did not load from the "
+             f"port's build directory ({native.loaded_from})")
+    (calls, sampled_calls, s_tids, s_debug, known, sent,
+     prep_s) = prepare_scribe_traffic(scale)
+    log(f"collector path: {sent} spans in {len(calls)} log calls and "
+        f"{len(sampled_calls)} sampled calls prepared in {prep_s:.1f} s")
+    oracle = InMemorySpanStore()
+    for tr in known:
+        oracle.apply(tr)
+    cfg = full_config(dev, scale.collector_log2, scale.services, **WINDOW)
+    free_card(torch, device)
+    store = TorchSpanStore(cfg, device=device.type, registry=obs.Registry())
+    reg = obs.Registry()
+    collector = Collector(store, sampler=Sampler(1.0), max_queue=500,
+                          concurrency=10, self_trace=True, registry=reg)
+    slow = []
+    decode_slow = collector._decode_segments_slow
+
+    def traced_slow(segments):
+        slow.append((len(segments), CORRUPT_ENTRY in segments))
+        return decode_slow(segments)
+
+    collector._decode_segments_slow = traced_slow
+    server = serve(ScribeReceiver(collector.accept,
+                                  process_thrift=collector.accept_thrift))
+    clock = WriteThriftClock(store)
+    rec = Recorder(K, record=("hist", "arena"))
+    try:
+        host, port = server.server_address
+        K.reset_launches()
+        with DeviceIdle(torch, device) as idle:
+            t0 = time.perf_counter()
+            acks, try_later = send_calls(host, port, calls)
+            t_sent = time.perf_counter()
+            collector.flush()
+            sync(torch, device)
+            drive_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        rec.restore()
+        split = dict(clock.s)
+        steps = store.counter_block()["batches"]
+        check_launches(launches, ("flat_histogram", "arena_claim",
+                                  "arena_write"), device, "collector", steps)
+        for half in ("arena_claim", "arena_write"):
+            if device.type == "cuda" and launches[half] != steps:
+                fail(f"collector path: {half} launched {launches[half]} "
+                     f"times in {steps} steps, not once a step")
+        step_check = step_vs_plain(K, rec, "collector path", 8)
+        del rec
+        processed = collector.queue.processed
+        stats = reg.as_dict()
+        if collector.spans_stored != sent:
+            fail(f"collector path: stored {collector.spans_stored} of "
+                 f"{sent} spans sent (less the corrupt entry)")
+        if stats["zipkin_collector_bad_payloads_total"] != 1:
+            fail(f"collector path: "
+                 f"{stats['zipkin_collector_bad_payloads_total']} bad "
+                 f"payloads, 1 injected")
+        if slow != [(len(calls[1]), True)]:
+            fail(f"collector path: the slow path decoded {slow}, not only "
+                 f"the call holding the corrupt entry")
+        end = 2**62
+        selfs = store.get_trace_ids_by_name("zipkin-tpu", "collector ingest",
+                                            end, processed + 16)
+        if len(selfs) != processed or processed != len(calls):
+            fail(f"collector path: {len(selfs)} self-trace spans for "
+                 f"{processed} processed queue items ({len(calls)} calls)")
+        seen = store.counter_block()["spans_seen"]
+        if seen != sent + processed:
+            fail(f"collector path: the store saw {seen} spans, "
+                 f"{sent} sent + {processed} self-trace expected")
+        t = time.perf_counter()
+        known_tids = [tr[0].trace_id for tr in known]
+        fetch_ms = cold_reads_vs_oracle(store, oracle, known_tids,
+                                        "collector path (known traces)")
+        reads_s = time.perf_counter() - t
+        write_p50, write_p99 = collector._h_write.quantile_values(
+            [0.5, 0.99])
+
+        # The sampled launch: rate 0.25, 1% debug, profiled.
+        collector.sampler.rate = 0.25
+        th = collector.sampler.threshold
+        allowed0, denied0 = collector.sampler.snapshot()
+        stored0, dropped0 = collector.spans_stored, collector.spans_dropped
+        send_calls(host, port, sampled_calls)
+        collector.flush()
+        t_abs = np.where(s_tids == np.int64(-(2**63)),
+                         np.int64(2**63 - 1), np.abs(s_tids))
+        keep = s_debug | (t_abs > np.int64(th))
+        allowed1, denied1 = collector.sampler.snapshot()
+        got = (collector.spans_stored - stored0,
+               collector.spans_dropped - dropped0,
+               allowed1 - allowed0, denied1 - denied0)
+        want = (int(keep.sum()), int((~keep).sum()),
+                int((keep & ~s_debug).sum()), int((~keep).sum()))
+        if got != want or not 0 < want[0] < len(keep):
+            fail(f"collector path: sampled drive stored/dropped/allowed/"
+                 f"denied {got}, the threshold test gives {want}")
+        uniq = np.unique(s_tids)
+        exist = store.traces_exist([int(x) for x in uniq])
+        if exist != {int(x) for x in np.unique(s_tids[keep])}:
+            fail("collector path: the sampled drive's kept trace set "
+                 "differs from the threshold test's")
+        debug_only = np.unique(s_tids[s_debug & ~(t_abs > np.int64(th))])
+        if len(debug_only) == 0:
+            fail("collector path: no sampled-out trace carries a debug span")
+        for tid, spans in zip(debug_only[:20], store.get_spans_by_trace_ids(
+                [int(x) for x in debug_only[:20]])):
+            if not spans or not all(s.debug for s in spans) or len(
+                    spans) != int((s_debug & (s_tids == tid)).sum()):
+                fail(f"collector path: the debug spans of sampled-out "
+                     f"trace {tid} were not kept alone")
+
+        # The dependency job over the full-width ring.
+        t = time.perf_counter()
+        recomputed = recompute_dependencies(store)
+        recompute_s = time.perf_counter() - t
+        svcs = set(COLD_SERVICES)
+        stream_links = {(lk.parent, lk.child): lk.duration_moments
+                        for lk in store.get_dependencies().links
+                        if lk.parent in svcs and lk.child in svcs}
+        re_links = {(lk.parent, lk.child): lk.duration_moments
+                    for lk in recomputed.links
+                    if lk.parent in svcs and lk.child in svcs}
+        if not stream_links or sorted(stream_links) != sorted(re_links):
+            fail("collector path: recomputed links of the known services "
+                 "differ from the streaming bank's")
+        keys = sorted(stream_links)
+        fields = ("n", "mean", "m2", "m3", "m4")
+        if not moments_close(
+                [[getattr(stream_links[k], f) for f in fields]
+                 for k in keys],
+                [[getattr(re_links[k], f) for f in fields] for k in keys]):
+            fail(f"collector path: recomputed links differ from the "
+                 f"streaming bank's beyond stated tolerance 2: "
+                 f"{[re_links[k] for k in keys]} vs "
+                 f"{[stream_links[k] for k in keys]}")
+        mem = (torch.cuda.max_memory_allocated()
+               if device.type == "cuda" else 0)
+    finally:
+        clock.restore()
+        if "rec" in locals():
+            rec.restore()
+        collector._decode_segments_slow = decode_slow
+        stop_server(server)
+        collector.close()
+    n_sampled = len(s_tids)
+    del store, collector
+    free_card(torch, device)
+    durable = collector_durable(torch, dev, scale, device)
+    parity = collector_parity(torch, dev, scale, device)
+    serial = serial_write_batch(torch, dev, scale, device)
+    e2e = sent / drive_s
+    result = {
+        "spans_sent": sent, "log_calls": len(calls),
+        "entries_per_call": scale.scribe_call, "clients": 4,
+        "prep_s": prep_s, "drive_s": drive_s,
+        "send_s": t_sent - t0, "flush_s": drive_s - (t_sent - t0),
+        "scribe_spans_per_s": e2e,
+        "serial_write_batch_spans_per_s": serial["spans_per_s"],
+        "serial_write_batch_spans_per_s_after_first": serial[
+            "spans_per_s_after_first"],
+        "scribe_over_serial": e2e / serial["spans_per_s"],
+        "window_path_spans_per_s_after_first": window[
+            "ingest_spans_per_s_after_first"],
+        "ack_ms_p50": float(np.percentile(acks, 50)),
+        "ack_ms_p99": float(np.percentile(acks, 99)),
+        "collector_write_s_p50": write_p50,
+        "collector_write_s_p99": write_p99,
+        "ingest_steps": steps, "spans_per_launch": seen / steps,
+        "queue_items": processed, "try_later": try_later,
+        "queue_rejections": int(stats["zipkin_queue_rejected_total"]),
+        "write_thrift_split_s": split,
+        "write_thrift_share_of_held": {
+            k: split[k] / max(split["held"], 1e-12)
+            for k in ("parse_intern", "index_bits", "chunk_pad", "commit")},
+        "slow_path_items": len(slow), "slow_path_segments": slow[0][0],
+        "known_fetch_ms_p50": float(np.percentile(fetch_ms, 50)),
+        "known_fetch_ms_p99": float(np.percentile(fetch_ms, 99)),
+        "known_reads_s": reads_s,
+        "sampled_spans": n_sampled, "sampled_kept": want[0],
+        "sampled_debug": int(s_debug.sum()),
+        "drive_idle_share": (idle.result["idle_share"] if idle.result
+                             else "not measured"),
+        "drive_profile": idle.result or "not measured",
+        "first_step_vs_plain": step_check,
+        "recompute_dependencies_s": recompute_s,
+        "max_memory_allocated_bytes": mem,
+        "durable": durable, "parity": parity, "serial": serial,
+        "kernel_launches": launches,
+    }
+    log("collector path result: " + json.dumps(result))
+    return result
+
+
+def small_scribe_calls(scale, seed: int):
+    """Four 2^14-scale launches of generated spans as log calls (made in
+    this process: ~14 k spans)."""
+    msgs = [m for i in range(4) for m in scribe_messages(
+        (i, seed, scale.services, scale.names, scale.small_traces, 0))[0]]
+    size = scale.scribe_call
+    return [[("zipkin", m) for m in msgs[i:i + size]]
+            for i in range(0, len(msgs), size)]
+
+
+def collector_durable(torch, dev, scale, device):
+    """The daemon's durable wiring at 2^14 (``example.py:630-633``): a
+    WAL with the daemon's defaults, ``ScribeReceiver(collector.
+    ingest_durable, process_thrift=collector.ingest_thrift_durable)``;
+    then ``wal.recover`` on the card must give the live state."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.ingest import Collector, ScribeReceiver
+    from zipkin_tpu_torch.sampler import Sampler
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.wal import WriteAheadLog, recover
+
+    cfg = full_config(dev, scale.small_log2, scale.services, **WINDOW)
+    calls = small_scribe_calls(scale, 41)
+    work = tempfile.mkdtemp(prefix="zipkin-collector-wal-")
+    try:
+        store = TorchSpanStore(cfg, device=device.type,
+                               registry=obs.Registry())
+        wal = WriteAheadLog(work, fsync="interval", interval_s=0.05,
+                            segment_bytes=64 << 20, registry=obs.Registry())
+        store.attach_wal(wal)
+        col = Collector(store, sampler=Sampler(1.0), max_queue=500,
+                        concurrency=10, self_trace=True,
+                        registry=obs.Registry())
+        server = serve(ScribeReceiver(
+            col.ingest_durable, process_thrift=col.ingest_thrift_durable))
+        try:
+            t = time.perf_counter()
+            acks, try_later = send_calls(*server.server_address, calls)
+            send_s = time.perf_counter() - t
+            col.flush()
+        finally:
+            stop_server(server)
+        want = state_to_numpy(store.state)
+        records = wal.last_seq
+        stored = col.spans_stored
+        col.close()
+        wal.close()
+        t = time.perf_counter()
+        rec, stats = recover(
+            None, WriteAheadLog(work, registry=obs.Registry()),
+            fresh_store=lambda d: TorchSpanStore(
+                cfg, device=d, registry=obs.Registry()),
+            device=device.type)
+        recover_s = time.perf_counter() - t
+        if stats["replayed_records"] != records or not records:
+            fail(f"collector path (durable): replayed "
+                 f"{stats['replayed_records']} of {records} records")
+        _check_states_equal(want, state_to_numpy(rec.state),
+                            "collector path (durable, recovered)")
+        if stored != sum(len(c) for c in calls):
+            fail("collector path (durable): not every span was stored")
+        rec.wal.close()
+        out = {"spans": stored, "log_calls": len(calls),
+               "wal_records": records, "send_s": send_s,
+               "durable_spans_per_s": stored / send_s,
+               "ack_ms_p50": float(np.percentile(acks, 50)),
+               "ack_ms_p99": float(np.percentile(acks, 99)),
+               "try_later": try_later, "recover_s": recover_s}
+        log("collector path (durable): " + json.dumps(out))
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def collector_parity(torch, dev, scale, device):
+    """The same payloads through ``Collector(concurrency=1,
+    self_trace=False)`` with the sampler at 0.5 into a store on the card
+    and one on the CPU: equal counters and states."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.ingest import Collector
+    from zipkin_tpu_torch.sampler import Sampler
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+    cfg = full_config(dev, scale.small_log2, scale.services, **WINDOW)
+    calls = [[base64.b64decode(m) for _, m in c]
+             for c in small_scribe_calls(scale, 43)]
+    calls[0].insert(3, CORRUPT_ENTRY)
+    states, counts = [], []
+    for d in (device.type, "cpu"):
+        store = TorchSpanStore(cfg, device=d, registry=obs.Registry())
+        col = Collector(store, sampler=Sampler(0.5), concurrency=1,
+                        self_trace=False, registry=obs.Registry())
+        for segs in calls:
+            col.accept_thrift(segs)
+        col.flush()
+        states.append(state_to_numpy(store.state))
+        counts.append((col.spans_stored, col.spans_dropped,
+                       col.bad_payloads, col.sampler.snapshot()))
+        col.close()
+    if counts[0] != counts[1] or not counts[0][1] or counts[0][2] != 1:
+        fail(f"collector path (parity): counters {counts[0]} on "
+             f"{device.type}, {counts[1]} on the cpu")
+    _check_states_equal(states[1], states[0], "collector path (parity)")
+    log(f"collector path (parity): {device.type} and cpu states equal "
+        f"after {counts[0][0]} stored, {counts[0][1]} sampled out")
+    return {"stored": counts[0][0], "dropped": counts[0][1]}
+
+
+def serial_write_batch(torch, dev, scale, device):
+    """The collector phase's four launches as columns through serial
+    ``write_batch`` on a fresh window store, each synchronised."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    cfg = full_config(dev, scale.collector_log2, scale.services, **WINDOW)
+    free_card(torch, device)
+    store = TorchSpanStore(cfg, device=device.type, registry=obs.Registry())
+    gen = ColumnarTraceGen(store.dicts,
+                           n_services=scale.services - len(COLD_SERVICES) - 1,
+                           n_span_names=scale.names - len(COLD_OPS) - 1,
+                           topology=True, seed=31)
+    step_s = []
+    spans = 0
+    for i in range(scale.collector_launches):
+        batch, _, ix = gen.next_batch(scale.batch_traces,
+                                      base_ts=WIN_BASE_US + i * WIN_STEP_US)
+        t = time.perf_counter()
+        store.write_batch(batch, ix)
+        sync(torch, device)
+        step_s.append(time.perf_counter() - t)
+        spans += batch.n_spans
+    steady = step_s[1:] or step_s
+    del store
+    free_card(torch, device)
+    return {"launches": len(step_s), "step_s": step_s,
+            "spans_per_s": spans / sum(step_s),
+            "spans_per_s_after_first": (spans // len(step_s) * len(steady)
+                                        / sum(steady))}
+
+
 KILL_CASES = (
     ("before-append", 5, 8, (3,), 64 << 20, 4, 4, False),
     ("after-append", 4, 6, (2,), 64 << 20, 4, 3, False),
@@ -2215,6 +2876,50 @@ def _disagree(got, want) -> int:
     if got.equal(want):
         return 0
     return int((got.long() - want.long()).abs().max())
+
+
+def step_vs_plain(K, rec, what: str, n_sites: int):
+    """K1's fused call and both K2 halves on a path's recorded first
+    step against their plain versions, bitwise: the fused histogram of
+    its ``n_sites`` sites, the claim's rank and counts (and the ones the
+    path's own claim passed on to the write), and the write from the
+    path's own claim. Fails on any difference."""
+    if len(rec.hist) != n_sites or rec.claim is None or rec.write is None:
+        fail(f"{what}: recorded {len(rec.hist)} flat_histogram sites (not "
+             f"{n_sites}) or no arena_claim / arena_write call")
+    want = [(c.clone(), i, w) for c, i, w in rec.hist]
+    K.histogram_update_many_plain(want)
+    got = [(c.clone(), i, w) for c, i, w in rec.hist]
+    K.histogram_update_many(got)
+    err = max(_disagree(g[0], w[0]) for g, w in zip(got, want))
+    if err:
+        fail(f"{what}: fused flat_histogram disagrees (max err {err})")
+    cells = sum(c.numel() for c, _, _ in rec.hist)
+    rows = sum(i.numel() for _, i, _ in rec.hist)
+    del got, want
+    bucket, valid, n_b = rec.claim
+    entries, wargs = rec.write
+    p_rank, p_cnt, wbucket, base, slot0, depth, vals, wvalid = wargs
+    if not (wbucket.equal(bucket) and wvalid.equal(valid)):
+        fail(f"{what}: the step's claim and write saw different rows")
+    want_r, want_c = K.arena_claim_plain(bucket, valid, n_b)
+    got_r, got_c = K.arena_claim(bucket, valid, n_b)
+    err = max(_disagree(got_r, want_r), _disagree(got_c, want_c),
+              _disagree(p_rank, want_r), _disagree(p_cnt, want_c))
+    if err:
+        fail(f"{what}: arena_claim disagrees (max err {err})")
+    want = K.arena_write_plain(entries.clone(), want_r, want_c, bucket,
+                               base, slot0, depth, vals, valid)
+    got = K.arena_write(entries.clone(), *wargs)
+    err = _disagree(got, want)
+    if err:
+        fail(f"{what}: arena_write disagrees (max err {err})")
+    out = {"hist_sites": n_sites, "hist_rows": rows, "hist_cells": cells,
+           "arena_rows": bucket.numel(), "buckets": n_b,
+           "arena_slots": entries.shape[0], "max_abs_err": 0}
+    log(f"{what}: K1 (fused) and both K2 halves equal their plain "
+        f"versions on the first step: " + json.dumps(out))
+    return out
 
 
 def arena_phase(torch, K, rec):
@@ -2562,6 +3267,8 @@ def main() -> int:
                    device)
     phase("cold_tier_parity", cold_tier_parity, torch, dev, scale,
           args.rehearse)
+    coll = phase("collector_path", collector_path, torch, K, dev, scale,
+                 device, wresult)
     piped = phase("pipeline_path", pipeline_path, torch, K, dev, scale,
                   device)
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
@@ -2582,7 +3289,8 @@ def main() -> int:
                "cold_tier": cold["kernel_launches"],
                "cold_tier_paged": {k: cpaged["kernel_launches"][k]
                                    + cpaged["read_launches"][k]
-                                   for k in cpaged["kernel_launches"]}}
+                                   for k in cpaged["kernel_launches"]},
+               "collector": coll["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -2590,7 +3298,8 @@ def main() -> int:
                      "durability": durable["ingest_steps"],
                      "durability_paged": 0,
                      "cold_tier": cold["ingest_steps"],
-                     "cold_tier_paged": cpaged["ingest_steps"]}
+                     "cold_tier_paged": cpaged["ingest_steps"],
+                     "collector": coll["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",
@@ -2622,6 +3331,7 @@ def main() -> int:
          "launches": result["kernel_launches"]["arena_claim"],
          "launches_by_path": {p: {h: v[h] for h in arena["halves"]}
                               for p, v in by_path.items()},
+         "steps_by_path": steps_by_path,
          "max_abs_err": arena["max_abs_err"], "ms": arena["ms"],
          "device_ms": arena["device_ms"],
          "plain_ms": arena["plain_ms"],
@@ -2637,6 +3347,7 @@ def main() -> int:
          "launches": presult["kernel_launches"]["paged_page_gather"],
          "launches_by_path": {p: v["paged_page_gather"]
                               for p, v in by_path.items()},
+         "steps_by_path": steps_by_path,
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
          "uncached_ms": gather["uncached_ms"],
          "device_ms": gather["device_ms"],

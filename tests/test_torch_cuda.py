@@ -7,6 +7,8 @@ on a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -625,3 +627,84 @@ def test_cuda_sealer_copies_on_its_own_stream(cuda, monkeypatch):
     assert piped.hot.sealed_frontier() == piped.hot._cap_upto
     assert piped.hot.eviction_sealer().c_sealed.value == len(seen)
     piped.close()
+
+
+# -- the ingest front end on the card ---------------------------------------
+
+
+def _thrift_payloads(n_payloads=6, n_traces=200):
+    """Thrift Span-sequence payloads of decoded generated batches, one
+    debug-flagged span in 100."""
+    from zipkin_tpu_torch.wire.thrift import span_to_bytes
+
+    out = []
+    for spans in _window_applies(n_payloads, n_traces):
+        spans = [dataclasses.replace(s, debug=True) if i % 100 == 0 else s
+                 for i, s in enumerate(spans)]
+        out.append(b"".join(span_to_bytes(s) for s in spans))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_write_thrift_matches_cpu(cuda):
+    """The native parse, the sampler's threshold and the launch on the
+    card: the same tuples and state as the CPU store; K1 once a step."""
+    from zipkin_tpu_torch.sampler import rate_to_threshold
+
+    payloads = _thrift_payloads()
+    card, cpu = _window_store(device="cuda"), _window_store(device="cpu")
+    before = K.LAUNCHES["flat_histogram"]
+    for i, p in enumerate(payloads):
+        th = rate_to_threshold(0.5 if i % 2 else 1.0)
+        assert card.write_thrift(p, th) == cpu.write_thrift(p, th)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["flat_histogram"] - before
+            == card.counter_block()["batches"] > 0)
+    _assert_same_store(cpu, card)
+
+
+@pytest.mark.cuda
+def test_cuda_collector_drive_matches_cpu(cuda):
+    """A single-worker collector with a Scribe receiver's fast path on
+    the card against the same drive on the CPU: counters and state."""
+    import base64
+
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.ingest import Collector, ResultCode, ScribeReceiver
+    from zipkin_tpu_torch.sampler import Sampler
+
+    payloads = _thrift_payloads(4, 150)
+    out = []
+    for device in ("cuda", "cpu"):
+        store = _window_store(device=device)
+        col = Collector(store, sampler=Sampler(0.5), concurrency=1,
+                        registry=obs.Registry())
+        rx = ScribeReceiver(col.accept, process_thrift=col.accept_thrift)
+        for p in payloads:
+            entries = [("zipkin", base64.b64encode(p).decode())]
+            assert rx.log(entries) is ResultCode.OK
+        col.flush()
+        out.append((store, (col.spans_stored, col.spans_dropped,
+                            col.bad_payloads, col.sampler.snapshot())))
+        col.close()
+    assert out[0][1] == out[1][1] and out[0][1][1] > 0
+    _assert_same_store(out[1][0], out[0][0])
+
+
+@pytest.mark.cuda
+def test_cuda_sample_mask_matches_cpu(cuda):
+    from zipkin_tpu_torch.sampler import rate_to_threshold, sample_mask
+
+    rng = np.random.default_rng(12)
+    tids = rng.integers(-2**63, 2**63 - 1, 1 << 16, dtype=np.int64,
+                        endpoint=True)
+    tids[:3] = [-2**63, 2**63 - 1, 0]
+    debug = rng.random(tids.size) < 0.01
+    for rate in (0.0, 0.3, 1.0):
+        th = rate_to_threshold(rate)
+        want = sample_mask(torch.from_numpy(tids), torch.from_numpy(debug),
+                           th)
+        got = sample_mask(torch.from_numpy(tids).to(cuda),
+                          torch.from_numpy(debug).to(cuda), th)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)

@@ -57,6 +57,48 @@ def test_package_imports_without_jax():
             "zipkin_tpu_torch.store.archive.segment, "
             "zipkin_tpu_torch.store.archive.directory, "
             "zipkin_tpu_torch.store.archive.coldquery, "
-            "zipkin_tpu_torch.store.archive.tiered")
+            "zipkin_tpu_torch.store.archive.tiered, "
+            "zipkin_tpu_torch.wire, zipkin_tpu_torch.wire.thrift, "
+            "zipkin_tpu_torch.native, zipkin_tpu_torch.sampler, "
+            "zipkin_tpu_torch.sampler.core, "
+            "zipkin_tpu_torch.sampler.adaptive, zipkin_tpu_torch.ingest, "
+            "zipkin_tpu_torch.ingest.queue, "
+            "zipkin_tpu_torch.ingest.collector, "
+            "zipkin_tpu_torch.ingest.receiver, "
+            "zipkin_tpu_torch.ingest.scribe_server, "
+            "zipkin_tpu_torch.ingest.kafka, zipkin_tpu_torch.client, "
+            "zipkin_tpu_torch.aggregate, zipkin_tpu_torch.aggregate.job; "
+            "from zipkin_tpu_torch.store.torch_store import TorchSpanStore; "
+            "from zipkin_tpu_torch.store.archive import TieredSpanStore; "
+            "from zipkin_tpu_torch.store.device import "
+            "recompute_dep_moments, dep_link_moments; "
+            "assert TorchSpanStore.write_thrift and "
+            "TieredSpanStore.write_thrift; "
+            "from zipkin_tpu_torch.client import B3Headers, Tracer")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_native_codec_builds_from_the_port_source_into_its_build_dir():
+    """The port's codec is compiled from ``zipkin_tpu_torch/csrc`` into
+    ``build/zipkin_tpu_torch/`` and loaded from there, never from the
+    JAX package's ``native/`` directory (both packages' tests share one
+    process)."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['zipkin_tpu'] = None; "
+            "from zipkin_tpu_torch import native; "
+            "assert native.available(); print(native.loaded_from); "
+            "print(native._SRC)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         check=True, timeout=180, capture_output=True,
+                         text=True).stdout.split()
+    so, src = Path(out[0]).resolve(), Path(out[1]).resolve()
+    assert so.parent == (ROOT / "build" / "zipkin_tpu_torch").resolve()
+    assert src == (ROOT / "zipkin_tpu_torch" / "csrc" / "span_codec.cc")
+    assert (ROOT / "native").resolve() not in so.parents
+    from zipkin_tpu import native as ref_native
+
+    assert Path(ref_native._SO).resolve() != so

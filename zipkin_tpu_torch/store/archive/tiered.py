@@ -1,9 +1,8 @@
 """TieredSpanStore: the full SpanStore SPI over hot ring + cold segments.
 
 The port's copy of ``zipkin_tpu/store/archive/tiered.py`` over a
-``TorchSpanStore``. The thrift passthrough (``write_thrift``) comes
-with the port's wire/native slice; until then a tiered store takes
-spans through ``apply`` (or columnar batches through ``hot``).
+``TorchSpanStore``. Writes (``apply``, the native thrift fast path
+``write_thrift``) go to the hot store, whose write path captures.
 
 Tiering contract (what makes the federation exact):
 
@@ -103,6 +102,9 @@ class TieredSpanStore(ColdQueries, SpanStore):
 
     def apply(self, spans: Sequence[Span]) -> None:
         self.hot.apply(spans)
+
+    def write_thrift(self, payload: bytes, sample_threshold: int = 0):
+        return self.hot.write_thrift(payload, sample_threshold)
 
     def set_time_to_live(self, trace_id: int, ttl_seconds: float) -> None:
         # Same TTL/pin bookkeeping as the hot store, but pin

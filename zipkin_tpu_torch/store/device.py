@@ -2082,6 +2082,38 @@ def counter_block(state: StoreState) -> torch.Tensor:
                         for f in COUNTER_BLOCK_FIELDS])
 
 
+def dep_link_moments(trace_id, span_id, parent_id, service_id, duration,
+                     build_valid, probe_valid, n_services: int
+                     ) -> torch.Tensor:
+    """[S*S, 5] Moments of child durations per (parent_svc, child_svc):
+    a sort-merge join of (trace_id, parent_id) against (trace_id,
+    span_id), then a segmented moments reduction
+    (ZipkinAggregateJob.scala:26-38)."""
+    S = n_services
+    found, parent_svc = join.lookup((trace_id, span_id), build_valid,
+                                    service_id, (trace_id, parent_id),
+                                    probe_valid)
+    link_ok = (found & (parent_svc >= 0) & (service_id >= 0)
+               & (parent_svc < S) & (service_id < S) & (duration >= 0))
+    link_id = torch.where(link_ok,
+                          parent_svc.to(torch.int64) * S + service_id,
+                          torch.zeros_like(parent_svc, dtype=torch.int64))
+    return M.segment_moments(duration.to(torch.float32), link_id, S * S,
+                             valid=link_ok)
+
+
+def recompute_dep_moments(state: StoreState) -> torch.Tensor:
+    """Offline recompute over the live span rows (the rerunnable batch
+    job; a parity check for the streaming banks)."""
+    from zipkin_tpu_torch.columnar.schema import FLAG_HAS_PARENT
+
+    live = state.row_gid >= 0
+    has_parent = (state.flags & int(FLAG_HAS_PARENT)) != 0
+    return dep_link_moments(
+        state.trace_id, state.span_id, state.parent_id, state.service_id,
+        state.duration, live, live & has_parent, state.config.max_services)
+
+
 def total_dep_moments(state: StoreState) -> torch.Tensor:
     """Tail + time-tagged banks + accumulating window."""
     banks = M.reduce_moments(state.dep_banks)

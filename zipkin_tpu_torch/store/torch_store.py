@@ -37,7 +37,12 @@ would lap it (``_maybe_capture``), on a paged store each page its plan
 reclaims (``_capture_pages``) — and the sink seals them into a cold
 segment, inline or, with ``capture_backlog > 0``, on the
 ``EvictionSealer`` thread. Not ported yet (later slices): the query
-engine, the native thrift fast path, sharding and the daemon.
+engine, sharding and the daemon.
+
+The native thrift fast path (``write_thrift``) parses a scribe payload
+into columns with the port's C++ codec (``native.py``), applies the
+sampler's threshold on the numeric columns, interns, and then chunks,
+pads and launches like ``apply``.
 """
 
 from __future__ import annotations
@@ -53,13 +58,10 @@ from zipkin_tpu_torch.columnar.dictionary import DictionarySet
 from zipkin_tpu_torch.columnar.encode import SpanCodec, to_signed64
 from zipkin_tpu_torch.columnar.schema import SpanBatch
 from zipkin_tpu_torch.models.constants import CORE_ANNOTATIONS
-from zipkin_tpu_torch.models.dependencies import (
-    Dependencies,
-    DependencyLink,
-    Moments,
-)
+from zipkin_tpu_torch.models.dependencies import Dependencies
 from zipkin_tpu_torch.models.span import Span
 from zipkin_tpu_torch.aggregate import windows as win
+from zipkin_tpu_torch.aggregate.job import dependencies_from_bank
 from zipkin_tpu_torch.ops import hll
 from zipkin_tpu_torch.ops import quantile as Q
 from zipkin_tpu_torch.store import device as dev
@@ -294,29 +296,6 @@ def mats_to_batch(n_s, n_a, n_b, span_mat, ann_mat, bann_mat):
     return batch, gids
 
 
-def links_from_bank(bank, services_dict, n_services: int
-                    ) -> List[DependencyLink]:
-    """Decode a [S*S, 5] Moments bank into DependencyLinks."""
-    bank = np.asarray(bank, np.float64)
-    links = []
-    for li in np.flatnonzero(bank[:, 0] > 0):
-        parent, child = divmod(int(li), n_services)
-        if parent >= len(services_dict) or child >= len(services_dict):
-            continue
-        links.append(DependencyLink(
-            services_dict.decode(parent), services_dict.decode(child),
-            Moments.from_central(*bank[li])))
-    return links
-
-
-def dependencies_from_bank(bank, services_dict, n_services: int,
-                           ts_min: float, ts_max: float) -> Dependencies:
-    links = links_from_bank(bank, services_dict, n_services)
-    if not links and ts_min > ts_max:
-        return Dependencies.zero()
-    return Dependencies(float(ts_min), float(ts_max), tuple(links))
-
-
 _SPAN_COLS = ("trace_id", "span_id", "parent_id", "name_id", "service_id",
               "ts_cs", "ts_cr", "ts_sr", "ts_ss", "ts_first", "ts_last",
               "duration", "flags")
@@ -467,6 +446,58 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
                     parts = []
             if parts:
                 self._write_parts(parts)
+
+    def write_thrift(self, payload: bytes,
+                     sample_threshold: int = 0) -> Tuple[int, int, int]:
+        """Native fast path: raw thrift Span sequence -> device, with no
+        Span objects. Returns (written, dropped, written_debug).
+
+        ``sample_threshold`` applies the sampler's trace-id test on the
+        parsed numeric columns BEFORE string interning (Sampler.scala:
+        39-48, with the debug override of SpanSamplerFilter.scala:40-47),
+        so sampled-out spans never reach the dictionaries; 0 keeps
+        everything. ``written_debug`` counts kept debug spans (the slow
+        path never runs those through the sampler's counters).
+
+        Raises ``native.NativeUnavailable`` when g++ is missing (callers
+        fall back to ``wire.thrift`` + ``apply``); ``ParseCapacityError``
+        propagates for callers to split the payload."""
+        from zipkin_tpu_torch import native
+
+        with self._lock:
+            t0 = time.perf_counter()  # stage-1 clock (pipelined mode)
+            batch, name_lc, dropped, kept_debug = (
+                native.parse_spans_columnar_sampled(
+                    payload, self.dicts, sample_threshold,
+                    max_spans=self.MAX_CHUNK))
+            if batch.n_spans == 0:
+                return 0, dropped, 0
+            for tid in np.unique(batch.trace_id):
+                self.ttls.setdefault(int(tid), 1.0)
+            if self.pins:
+                # Fast-path arrivals for pinned traces must reach the
+                # eviction-exempt bank too: decode just those rows.
+                keep = np.isin(batch.trace_id, np.fromiter(
+                    self.pins.tids(), np.int64, len(self.pins.tids())))
+                if keep.any():
+                    self._bump_read_epoch()
+                    self.pins.note_write(to_signed64, self.codec.decode(
+                        self._select_batch(batch, keep)))
+            self._prune_ttls()
+            indexable = native.indexable_from_batch(batch, self.dicts)
+            parts = list(self._chunk_columnar(batch, name_lc, indexable))
+            pipe = self._pipeline
+            if pipe is not None:
+                # t0 opened before the parse: the encode sketch covers
+                # the whole stage-1 body (parse, index bits, chunking,
+                # padding).
+                self.ensure_writable()
+                stalled = self._feed_units(pipe, parts)
+                pipe.h_encode.observe(
+                    max(time.perf_counter() - t0 - stalled, 0.0))
+            else:
+                self._write_parts(parts)
+            return batch.n_spans, dropped, kept_debug
 
     def _apply_pipelined(self, spans: Sequence[Span]) -> None:
         """Stage 1 of the ingest pipeline (caller thread, under the
