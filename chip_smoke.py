@@ -116,7 +116,28 @@ nvcc per source, started together), then
    beside serial ``write_batch`` of the same launches, ack and write
    latencies, ``write_thrift``'s split (lock wait, parse + intern, chunk
    + pad, commit) and the idle share over the drive (taken under the
-   CUDA-only profiler, as the drive's spans/s are).
+   CUDA-only profiler, as the drive's spans/s are);
+14. the daemon's read path at full width (``query_path``):
+   ``QueryService(store)`` with the daemon's 2 ms window over the window
+   store, loaded with 12 launches of the stream and 100 known traces on
+   five services of their own; eight reader threads send ~2,000
+   ``get_trace_ids`` requests (by service, span name, annotation and
+   binary annotation, limits 10 and 100, each order, a tenth with two
+   or three terms, drawn with repeats) and ~200 sketch reads while the
+   store takes four more launches. It fails unless every known-service
+   answer and the known traces' combos (skew adjustment on) equal an
+   oracle ``QueryService`` over ``InMemorySpanStore``, every index-tier
+   answer equals the store's direct serial ``get_trace_ids_multi`` at
+   the frontier it was served at, every sketch-tier answer the store's
+   direct read, a repeat read at a still frontier hits the result cache
+   and misses after a commit, K1 and both K2 halves launch once a step,
+   ``checkpoint.save`` (run while readers read) drains the engine before
+   the pipeline, and a ``QueryService`` over a paged store at 2^14 reads
+   the known traces' combos through the page gather equal to its CPU
+   twin's and the oracle's. It prints serve p50/p99 by tier, dispatch
+   p50/p99, requests a launch, reads/s, request ms split by what they
+   overlapped (a launch, a long collector pause), the collector's
+   pauses by generation and the card's idle share over the drive.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -211,6 +232,8 @@ class Scale:
             self.cold_known, self.cold_sample = 10, 8
             self.collector_log2, self.scribe_call = 12, 128
             self.prep_workers = 2
+            self.query_log2, self.query_launches = 13, 2
+            self.query_requests, self.query_pool = 200, 40
         else:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
@@ -241,8 +264,16 @@ class Scale:
             # of 2,048 entries, its traffic made in 5 worker processes.
             self.collector_log2, self.scribe_call = 22, 2048
             self.prep_workers = 5
+            # The query phase: 12 + 4 launches (1,835,008 spans) stay
+            # inside one lap of the 2^22 ring, so no known trace laps;
+            # ~2,000 requests drawn from a pool of 160 (repeats).
+            self.query_log2, self.query_launches = 22, 12
+            self.query_requests, self.query_pool = 2000, 160
         # Four launches of the stream through the Scribe front end.
         self.collector_launches = 4
+        # The query phase: the window store loaded with part of a lap,
+        # eight readers, four launches while they read.
+        self.query_writes, self.query_readers = 4, 8
         # Launches past one lap of the span ring: the first capture
         # window (~capacity spans) is pulled and sealed, then three more.
         self.cold_launches = -(-(1 << self.cap_log2)
@@ -552,17 +583,26 @@ def big_traces(scale, names):
 
 class GcPauses:
     """Host milliseconds spent in Python's cyclic garbage collector while
-    installed in ``gc.callbacks``."""
+    installed in ``gc.callbacks``; ``by_gen`` splits them (and counts
+    the collections) by the generation collected, ``spans`` keeps each
+    pause's (start, end) on the host clock."""
 
     def __init__(self):
         self.ms = 0.0
         self._t = 0.0
+        self.by_gen = {}
+        self.spans = []
 
     def __call__(self, phase, info):
         if phase == "start":
             self._t = time.perf_counter()
         else:
-            self.ms += (time.perf_counter() - self._t) * 1e3
+            t = time.perf_counter()
+            ms = (t - self._t) * 1e3
+            self.ms += ms
+            self.spans.append((self._t, t))
+            n, total = self.by_gen.get(info["generation"], (0, 0.0))
+            self.by_gen[info["generation"]] = (n + 1, total + ms)
 
 
 def known_answer_reads(store, traces, big, overflow, names, gen):
@@ -2643,6 +2683,575 @@ def serial_write_batch(torch, dev, scale, device):
                                         / sum(steady))}
 
 
+# ---------------------------------------------------------------------------
+# The query layer: QueryService over the daemon's store while it ingests
+# ---------------------------------------------------------------------------
+
+QUERY_TERMS = ("service", "span", "annotation", "binary")
+QUERY_MULTI = (("span", "annotation"), ("annotation", "binary"),
+               ("span", "annotation", "binary"))
+# The cache check's query: a limit no reader asks for.
+CACHE_PROBE_LIMIT = 7
+
+
+def same_json(a, b) -> bool:
+    """Equal as JSON text: NaN equals NaN, tuples equal lists."""
+    return (json.dumps(a, sort_keys=True, default=repr)
+            == json.dumps(b, sort_keys=True, default=repr))
+
+
+def query_request(svc, span_name, terms, limit, order):
+    from zipkin_tpu_torch.query import BinaryAnnotationQuery, QueryRequest
+
+    kw = {}
+    if "span" in terms:
+        kw["span_name"] = span_name
+    if "annotation" in terms:
+        kw["annotations"] = ("some custom annotation",)
+    if "binary" in terms:
+        kw["binary_annotations"] = (
+            BinaryAnnotationQuery("http.uri", b"/api/widgets"),)
+    return QueryRequest(svc, end_ts=2**62, limit=limit, order=order, **kw)
+
+
+def query_ops(scale, store, service, rng):
+    """The reader drive: ``scale.query_requests`` get_trace_ids requests
+    drawn with repeats from a pool over the five known services and the
+    first twenty of the stream's (by service, span name, annotation, binary
+    annotation; limits 10 and 100; each Order), a tenth of them with two
+    or three terms, and one sketch read after every tenth request."""
+    from zipkin_tpu_torch.query import Order
+
+    present = store.get_all_service_names()
+    svcs = [s for s in COLD_SERVICES if s in present] + sorted(
+        s for s in present if s.startswith("svc-"))[:20]
+    names = {s: sorted(store.get_span_names(s)) for s in svcs}
+    if not all(names.values()):
+        fail("query path: a service of the mix has no span name")
+    orders = list(Order)
+    n_single, n_multi = scale.query_pool, max(2, scale.query_pool // 8)
+
+    def draw(terms_of, n):
+        out = []
+        for _ in range(n):
+            svc = svcs[int(rng.integers(len(svcs)))]
+            out.append(query_request(
+                svc, names[svc][int(rng.integers(len(names[svc])))],
+                terms_of(), (10, 100)[int(rng.integers(2))],
+                orders[int(rng.integers(len(orders)))]))
+        return out
+
+    single = draw(lambda: (QUERY_TERMS[int(rng.integers(4))],), n_single)
+    multi = draw(lambda: QUERY_MULTI[int(rng.integers(3))], n_multi)
+    now_us = WIN_BASE_US + (scale.query_launches
+                           + scale.query_writes) * WIN_STEP_US
+    sketch = [
+        lambda s: service.get_service_names(),
+        lambda s: service.get_span_names(s),
+        lambda s: service.get_service_duration_quantiles(s, [0.5, 0.99]),
+        lambda s: service.get_top_annotations(s),
+        lambda s: service.get_top_key_value_annotations(s),
+        lambda s: service.get_windowed_quantiles(s, [0.5, 0.99]),
+        lambda s: service.get_slo_burn(s, windows_s=[300, 3600],
+                                       now_us=now_us),
+        lambda s: service.get_latency_heatmap(s),
+    ]
+    ops = []
+    for i in range(scale.query_requests):
+        pool = multi if i % 10 == 9 else single
+        ops.append(("ids", pool[int(rng.integers(len(pool)))]))
+        if i % 10 == 9:
+            fn = sketch[int(rng.integers(len(sketch)))]
+            svc = svcs[int(rng.integers(len(svcs)))]
+            ops.append(("sketch", lambda fn=fn, svc=svc: fn(svc)))
+    return ops, svcs, now_us
+
+
+class IndexLog:
+    """Wraps an engine's ``get_trace_ids_multi``: every call whose store
+    frontier held still across it is logged (queries, results, frontier)
+    under ``lock``; the phase's writer holds ``lock`` while it checks
+    the log against the store's direct serial reads and commits the
+    next launch, so each logged entry is checked at its own frontier.
+    A reader's seconds waiting for ``lock`` (the writer's check and
+    launch) add up in ``waited()``, so request times can leave them
+    out."""
+
+    def __init__(self, engine, store):
+        self.engine, self.store = engine, store
+        self.orig = engine.get_trace_ids_multi
+        self.lock = threading.Lock()
+        self.entries, self.raced = [], 0
+        self.compared = self.queries = 0
+        self._local = threading.local()
+        engine.get_trace_ids_multi = self._multi
+
+    def waited(self) -> float:
+        return getattr(self._local, "waited", 0.0)
+
+    def _multi(self, queries):
+        queries = [tuple(q) for q in queries]
+        f1 = self.store.write_frontier()
+        res = self.orig(queries)
+        t = time.perf_counter()
+        with self.lock:
+            self._local.waited = self.waited() + time.perf_counter() - t
+            if self.store.write_frontier() == f1:
+                self.entries.append((queries, res, f1))
+            else:
+                self.raced += 1
+        return res
+
+    def check(self, what):
+        """Every entry logged since the last check against
+        ``store.get_trace_ids_multi`` at the current frontier, then drops
+        them; the caller holds ``lock``."""
+        f = self.store.write_frontier()
+        todo, self.entries = self.entries, []
+        if any(fe != f for _, _, fe in todo):
+            fail(f"{what}: an entry logged at another frontier")
+        unique = list({q: None for qs, _, _ in todo for q in qs})
+        direct = {}
+        for i in range(0, len(unique), 64):
+            chunk = unique[i:i + 64]
+            direct.update(zip(chunk, self.store.get_trace_ids_multi(chunk)))
+        for qs, res, _ in todo:
+            for q, r in zip(qs, res):
+                if list(r) != list(direct[q]):
+                    fail(f"{what}: the engine answered {q} with "
+                         f"{len(r)} ids, the store's direct read "
+                         f"{len(direct[q])} at frontier {f}")
+        self.compared += len(todo)
+        self.queries += sum(len(qs) for qs, _, _ in todo)
+
+    def restore(self):
+        del self.engine.get_trace_ids_multi
+
+
+def cache_probe(engine, multi, store, query, commit, what):
+    """A repeat read at an unchanged frontier is a hit; after ``commit()``
+    (a launch) the same read is a miss. ``multi`` is the engine's own
+    ``get_trace_ids_multi``."""
+    from zipkin_tpu_torch.query.engine import _MISS
+
+    f = store.write_frontier()
+    first = multi([query])
+    if engine.cache.get((("ids", query), f)) is _MISS:
+        fail(f"{what}: a read at a still frontier was not cached")
+    hits = engine.c_hits.value
+    if multi([query]) != first or \
+            engine.c_hits.value <= hits:
+        fail(f"{what}: the repeat read was not a cache hit")
+    commit()
+    f2 = store.write_frontier()
+    if f2 == f or engine.cache.get((("ids", query), f2)) is not _MISS:
+        fail(f"{what}: the commit did not move the frontier past the "
+             f"cached entry")
+    misses = engine.c_misses.value
+    multi([query])
+    if engine.c_misses.value <= misses:
+        fail(f"{what}: the read after a commit was not a miss")
+
+
+def run_readers(ops, n_readers, body):
+    """``n_readers`` threads take ops in turn and call ``body(op)``;
+    returns (threads, done counter, errors)."""
+    cursor, done, errors = [0], [0], []
+    lock = threading.Lock()
+
+    def reader():
+        try:
+            while True:
+                with lock:
+                    i = cursor[0]
+                    cursor[0] += 1
+                if i >= len(ops):
+                    return
+                body(ops[i])
+                with lock:
+                    done[0] += 1
+        except BaseException as e:  # noqa: BLE001 — failed below
+            errors.append(e)
+
+    threads = [threading.Thread(target=reader, name=f"query-reader-{k}")
+               for k in range(n_readers)]
+    for t in threads:
+        t.start()
+    return threads, done, errors
+
+
+def join_readers(threads, errors, what):
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads) or errors:
+        fail(f"{what}: a reader failed or hung: {errors[:3]}")
+
+
+def sketch_vs_store(engine, store, svcs, now_us, what):
+    """Every sketch-tier answer equals the store's direct read."""
+    if engine.get_all_service_names() != store.get_all_service_names():
+        fail(f"{what}: the service catalog differs from the store's")
+    qs = [0.5, 0.9, 0.99]
+    for s in svcs:
+        pairs = (
+            (engine.get_span_names(s), store.get_span_names(s)),
+            (engine.service_duration_quantiles(s, qs),
+             store.service_duration_quantiles(s, qs)),
+            (engine.top_annotations(s), store.top_annotations(s)),
+            (engine.top_binary_keys(s), store.top_binary_keys(s)),
+            (engine.windowed_quantiles(s, qs),
+             store.windowed_quantiles(s, qs)),
+            (engine.slo_burn(s, windows_s=[300, 3600], now_us=now_us),
+             store.slo_burn(s, windows_s=[300, 3600], now_us=now_us)),
+            (engine.latency_heatmap(s), store.latency_heatmap(s)))
+        for k, (a, b) in enumerate(pairs):
+            if not (a == b if isinstance(a, set) else same_json(a, b)):
+                fail(f"{what}: sketch answer {k} of {s} differs from the "
+                     f"store's direct read")
+    if engine.estimated_unique_traces() != store.estimated_unique_traces():
+        fail(f"{what}: the HLL estimate differs from the store's")
+
+
+def combos_vs(service, other, tids, what):
+    for i in range(0, len(tids), 25):
+        chunk = tids[i:i + 25]
+        got = service.get_trace_combos_by_ids(chunk)
+        if got != other.get_trace_combos_by_ids(chunk) or \
+                len(got) != len(chunk):
+            fail(f"{what}: trace combos of known traces {i}..{i + 25} "
+                 f"differ")
+
+
+def request_split(reqs, launches, pauses, long_ms: float = 10.0):
+    """p50/p99 request ms (``reqs``: (seconds, start, end)) split by what
+    each overlapped on the host clock: a launch during the reads, a
+    collector pause of ``long_ms`` or more, neither."""
+    long = [(a, b) for a, b in pauses if (b - a) * 1e3 >= long_ms]
+
+    def hits(a, b, spans):
+        return any(x < b and y > a for x, y in spans)
+
+    groups = {"overlapping_launch": [], "overlapping_long_gc_pause": [],
+              "neither": []}
+    for sec, a, b in reqs:
+        if hits(a, b, launches):
+            groups["overlapping_launch"].append(sec)
+        elif hits(a, b, long):
+            groups["overlapping_long_gc_pause"].append(sec)
+        else:
+            groups["neither"].append(sec)
+    return {k: {"n": len(v),
+                "p50_ms": float(np.percentile(v, 50)) * 1e3 if v else None,
+                "p99_ms": float(np.percentile(v, 99)) * 1e3 if v else None}
+            for k, v in groups.items()} | {"long_gc_pauses": len(long)}
+
+
+def query_path(torch, K, dev, scale, device):
+    """The daemon's read path at full width (``example.py:439-442``):
+    ``QueryService(store)`` with the 2 ms window over the window store,
+    part of a lap of the stream and 100 known traces of five services
+    of their own; eight readers send the request mix while the store
+    takes four more launches. Known-service answers and combos must
+    equal an oracle ``QueryService`` over ``InMemorySpanStore``; every
+    index-tier answer the store's direct serial read at its frontier;
+    every sketch-tier answer the store's direct read; a repeat read at
+    a still frontier is a hit, after a commit a miss. Then
+    ``checkpoint.save`` while readers run (the engine drains first), and
+    a paged 2^14 store's combos through K3 against its CPU twin."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.query import QueryService
+    from zipkin_tpu_torch.query.engine import DEFAULT_COALESCE_WINDOW_S
+    from zipkin_tpu_torch.store.memory import InMemorySpanStore
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    cfg = full_config(dev, scale.query_log2, scale.services, **WINDOW)
+    free_card(torch, device)
+    store = TorchSpanStore(cfg, device=device.type, registry=obs.Registry())
+    gen = ColumnarTraceGen(store.dicts,
+                           n_services=scale.services - len(COLD_SERVICES),
+                           n_span_names=scale.names - len(COLD_OPS),
+                           topology=True, seed=51)
+    mark = error_marker(store.dicts)
+
+    launch_s = []
+
+    def launch(i):
+        batch, _, ix = gen.next_batch(scale.batch_traces,
+                                      base_ts=WIN_BASE_US + i * WIN_STEP_US)
+        mark(batch)
+        t = time.perf_counter()
+        store.write_batch(batch, ix)
+        sync(torch, device)
+        launch_s.append((t, time.perf_counter()))
+
+    t = time.perf_counter()
+    for i in range(scale.query_launches):
+        launch(i)
+    known = cold_known(scale.cold_known, 52, WIN_BASE_US + 3 * WIN_US)
+    known_spans = [s for tr in known for s in tr]
+    store.apply(known_spans)
+    sync(torch, device)
+    load_s = time.perf_counter() - t
+    oracle = InMemorySpanStore()
+    oracle.apply(known_spans)
+    service = QueryService(store, registry=obs.Registry())
+    oracle_svc = QueryService(oracle, registry=obs.Registry())
+    engine = service.engine
+    if engine.window_s != DEFAULT_COALESCE_WINDOW_S:
+        fail(f"query path: the engine's window is {engine.window_s} s, not "
+             f"the daemon's {DEFAULT_COALESCE_WINDOW_S}")
+    ops, svcs, now_us = query_ops(scale, store, service,
+                                  np.random.default_rng(53))
+    want = {op[1]: oracle_svc.get_trace_ids(op[1]) for op in ops
+            if op[0] == "ids" and op[1].service_name in COLD_SERVICES}
+    if sum(bool(w.trace_ids) for w in want.values()) < len(want) // 2:
+        fail("query path: most known-service requests are empty")
+    lat = {"ids": [], "sketch": []}
+    wrong = []
+
+    def body(op):
+        t0, w0 = time.perf_counter(), idx.waited()
+        if op[0] == "sketch":
+            op[1]()
+            lat["sketch"].append(time.perf_counter() - t0)
+            return
+        resp = service.get_trace_ids(op[1])
+        t1 = time.perf_counter()
+        lat["ids"].append((t1 - t0 - (idx.waited() - w0), t0, t1))
+        w = want.get(op[1])
+        if w is not None and resp != w:
+            wrong.append(op[1])
+
+    idx = IndexLog(engine, store)
+    probe = ("name", COLD_SERVICES[0], None, 2**62, CACHE_PROBE_LIMIT)
+    n_ids = sum(op[0] == "ids" for op in ops)
+    marks = [len(ops) * (k + 1) // (scale.query_writes + 1)
+             for k in range(scale.query_writes)]
+    pauses = GcPauses()
+    K.reset_launches()
+    steps0 = store.counter_block()["batches"]
+    gate_s = []
+    with DeviceIdle(torch, device) as idle:
+        # The collector's pauses over the drive alone (the profiler's
+        # own parse at the block's exit makes millions of objects).
+        gc.callbacks.append(pauses)
+        try:
+            t0 = time.perf_counter()
+            threads, done, errors = run_readers(ops, scale.query_readers,
+                                                body)
+            for k, m in enumerate(marks):
+                while done[0] < m and any(t.is_alive() for t in threads):
+                    time.sleep(0.002)
+                with idx.lock:
+                    t = time.perf_counter()
+                    idx.check(f"query path (before launch {k})")
+                    cache_probe(engine, idx.orig, store, probe,
+                                lambda: launch(scale.query_launches + k),
+                                "query path")
+                    gate_s.append(time.perf_counter() - t)
+            join_readers(threads, errors, "query path")
+            drive_s = time.perf_counter() - t0
+        finally:
+            gc.callbacks.remove(pauses)
+    launches = dict(K.LAUNCHES)
+    steps = store.counter_block()["batches"] - steps0
+    with idx.lock:
+        idx.check("query path (after the drive)")
+    idx.restore()
+    if steps != scale.query_writes:
+        fail(f"query path: {steps} ingest steps during the reads, "
+             f"{scale.query_writes} launched")
+    check_launches(launches, ("flat_histogram", "arena_claim",
+                              "arena_write"), device, "query", steps)
+    if wrong:
+        fail(f"query path: {len(wrong)} known-service answers differ from "
+             f"the oracle's, first {wrong[0]}")
+    ex = engine.executor
+    tiers = {}
+    for tier in ("sketch", "cache", "index"):
+        h = engine.h_serve.labels(tier=tier)
+        p50, p99 = h.quantile_values([0.5, 0.99])
+        tiers[tier] = {"count": h.count, "p50_ms": p50 * 1e3,
+                       "p99_ms": p99 * 1e3}
+    d50, d99 = engine.h_dispatch.quantile_values([0.5, 0.99])
+    coalesce = {"batches": ex.batches, "queries": ex.queries,
+                "launches_saved": ex.launches_saved,
+                "max_batch": ex.max_batch,
+                "requests_per_launch": (ex.batches + ex.launches_saved)
+                / max(ex.batches, 1),
+                "queries_per_launch": ex.queries / max(ex.batches, 1)}
+    if idx.compared <= 0 or tiers["cache"]["count"] <= 0 or \
+            tiers["sketch"]["count"] <= 0:
+        fail("query path: no index answer was checked, or no read hit the "
+             "cache or the sketch tier")
+    # Quiescent now: the sketch tier and the known traces' combos.
+    sketch_vs_store(engine, store, COLD_SERVICES + svcs[5:15], now_us,
+                    "query path")
+    known_tids = [tr[0].trace_id for tr in known]
+    t = time.perf_counter()
+    combos_vs(service, oracle_svc, known_tids, "query path")
+    combos_s = time.perf_counter() - t
+    cache = {"hits": engine.c_hits.value, "misses": engine.c_misses.value,
+             "entries": len(engine.cache)}
+    drain = query_drain(scale, store, service, ops)
+    service.close()
+    if ex._thread is not None and ex._thread.is_alive():
+        fail("query path: the executor thread outlived close()")
+    mem = (torch.cuda.max_memory_allocated()
+           if device.type == "cuda" else 0)
+    del store, service, engine, ex
+    free_card(torch, device)
+    paged = query_paged(torch, K, dev, scale, device, known, oracle_svc)
+    oracle_svc.close()
+    ms = np.array([r[0] for r in lat["ids"]]) * 1e3
+    during = launch_s[scale.query_launches:]
+    result = {
+        "load_s": load_s, "load_launches": scale.query_launches,
+        "known_traces": len(known), "readers": scale.query_readers,
+        "requests": n_ids, "sketch_reads": len(ops) - n_ids,
+        "drive_s": drive_s, "reads_per_s": len(ops) / drive_s,
+        "request_ms_p50": float(np.percentile(ms, 50)),
+        "request_ms_p99": float(np.percentile(ms, 99)),
+        "sketch_read_ms_p99": float(np.percentile(lat["sketch"], 99)) * 1e3,
+        "serve_by_tier": tiers,
+        "dispatch_ms_p50": d50 * 1e3, "dispatch_ms_p99": d99 * 1e3,
+        "coalesce": coalesce,
+        "cache": cache,
+        "index_entries_checked": idx.compared,
+        "index_queries_checked": idx.queries, "index_raced": idx.raced,
+        "known_requests_vs_oracle": sum(
+            op[0] == "ids" and op[1] in want for op in ops),
+        "writes_during_reads": steps,
+        "launch_s_during_reads": [b - a for a, b in during],
+        "request_ms_split": request_split(lat["ids"], during,
+                                          pauses.spans),
+        "gate_s": gate_s, "gc_ms_in_drive": pauses.ms,
+        "gc_by_generation": {str(g): {"collections": n, "ms": t}
+                             for g, (n, t) in sorted(pauses.by_gen.items())},
+        "drive_idle_share": (idle.result["idle_share"] if idle.result
+                             else "not measured"),
+        "drive_profile": idle.result or "not measured",
+        "known_combos_s": combos_s, "drain": drain, "paged": paged,
+        "max_memory_allocated_bytes": mem,
+        "kernel_launches": {k: launches[k] + paged["read_launches"][k]
+                            for k in launches},
+        "ingest_steps": steps,
+    }
+    log("query path result: " + json.dumps(result))
+    return result
+
+
+def query_drain(scale, store, service, ops):
+    """``checkpoint.save`` while eight readers run: the engine's drain
+    must come first, before the pipeline's, then the gather."""
+    from zipkin_tpu_torch import checkpoint
+
+    engine = service.engine
+    order, drain_ms = [], []
+    drain, drain_pipeline = engine.drain, store.drain_pipeline
+
+    def timed_drain():
+        ex = engine.executor
+        with ex._cv:
+            busy = len(ex._pending) + ex._inflight
+        t = time.perf_counter()
+        drain()
+        drain_ms.append(((time.perf_counter() - t) * 1e3, busy))
+        order.append("queries")
+
+    def noted_pipeline():
+        order.append("pipeline")
+        drain_pipeline()
+
+    engine.drain, store.drain_pipeline = timed_drain, noted_pipeline
+    work = tempfile.mkdtemp(prefix="zipkin-query-ckpt-")
+    burst = [op for op in ops if op[0] == "ids"][:scale.query_requests // 10]
+    try:
+        threads, done, errors = run_readers(
+            burst, scale.query_readers,
+            lambda op: service.get_trace_ids(op[1]))
+        while done[0] < len(burst) // 10 and any(
+                t.is_alive() for t in threads):
+            time.sleep(0.002)
+        before = done[0]
+        t = time.perf_counter()
+        stats = checkpoint.save(store, os.path.join(work, "ckpt"))
+        save_s = time.perf_counter() - t
+        during = done[0] - before
+        join_readers(threads, errors, "query path (drain)")
+    finally:
+        del engine.drain, store.drain_pipeline
+        shutil.rmtree(work, ignore_errors=True)
+    if order[:2] != ["queries", "pipeline"]:
+        fail(f"query path: checkpoint.save drained {order}, not the "
+             f"queries first")
+    out = {"save_s": save_s, "drain_ms": drain_ms[0][0],
+           "in_flight_at_drain": drain_ms[0][1],
+           "reads_before_save": before, "reads_during_save": during,
+           "burst": len(burst), "gather_s": stats.get("gather_s")}
+    log("query path (drain): " + json.dumps(out))
+    return out
+
+
+def query_paged(torch, K, dev, scale, device, known, oracle_svc):
+    """``QueryService`` over a paged store at 2^14 (128-row pages) on the
+    card and over its CPU twin: the known traces' combos (trace reads
+    through the page gather) and the known-service requests equal the
+    twin's and the oracle's; the gather's launches are counted."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.query import Order, QueryService
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+    cfg = full_config(dev, scale.dur_paged_log2, scale.services,
+                      **paged_layout(scale))
+    applies = span_applies(scale, 2, scale.dur_paged_traces, WIN_STEP_US,
+                           seed=54)
+    known_spans = [s for tr in known for s in tr]
+    services = {}
+    for d in dict.fromkeys((device.type, "cpu")):
+        st = TorchSpanStore(cfg, device=d, registry=obs.Registry())
+        for spans in applies:
+            st.apply(spans)
+        st.apply(known_spans)
+        services[d] = QueryService(st, registry=obs.Registry())
+    card, cpu = services[device.type], services["cpu"]
+    tids = [tr[0].trace_id for tr in known]
+    try:
+        K.reset_launches()
+        t = time.perf_counter()
+        got = []
+        for i in range(0, len(tids), 25):
+            got += card.get_trace_combos_by_ids(tids[i:i + 25])
+        sync(torch, device)
+        read_s = time.perf_counter() - t
+        launches = dict(K.LAUNCHES)
+        if device.type == "cuda" and launches["paged_page_gather"] <= 0:
+            fail("query path (paged): the combos did not launch the page "
+                 "gather")
+        want = []
+        for i in range(0, len(tids), 25):
+            want += cpu.get_trace_combos_by_ids(tids[i:i + 25])
+        if got != want or len(got) != len(tids):
+            fail("query path (paged): combos differ from the CPU twin's")
+        combos_vs(card, oracle_svc, tids, "query path (paged)")
+        for svc in COLD_SERVICES:
+            for order in Order:
+                qr = query_request(svc, None, ("service",), 10, order)
+                a = card.get_trace_ids(qr)
+                if a != cpu.get_trace_ids(qr) or \
+                        a != oracle_svc.get_trace_ids(qr):
+                    fail(f"query path (paged): {svc} {order} differs")
+    finally:
+        for s in services.values():
+            s.close()
+    out = {"capacity": cfg.capacity, "pages": cfg.n_pages,
+           "combos": len(got), "combos_read_s": read_s,
+           "read_launches": launches}
+    log("query path (paged): " + json.dumps(out))
+    return out
+
+
 KILL_CASES = (
     ("before-append", 5, 8, (3,), 64 << 20, 4, 4, False),
     ("after-append", 4, 6, (2,), 64 << 20, 4, 3, False),
@@ -3269,6 +3878,7 @@ def main() -> int:
           args.rehearse)
     coll = phase("collector_path", collector_path, torch, K, dev, scale,
                  device, wresult)
+    query = phase("query_path", query_path, torch, K, dev, scale, device)
     piped = phase("pipeline_path", pipeline_path, torch, K, dev, scale,
                   device)
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
@@ -3290,7 +3900,8 @@ def main() -> int:
                "cold_tier_paged": {k: cpaged["kernel_launches"][k]
                                    + cpaged["read_launches"][k]
                                    for k in cpaged["kernel_launches"]},
-               "collector": coll["kernel_launches"]}
+               "collector": coll["kernel_launches"],
+               "query": query["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -3299,7 +3910,8 @@ def main() -> int:
                      "durability_paged": 0,
                      "cold_tier": cold["ingest_steps"],
                      "cold_tier_paged": cpaged["ingest_steps"],
-                     "collector": coll["ingest_steps"]}
+                     "collector": coll["ingest_steps"],
+                     "query": query["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",

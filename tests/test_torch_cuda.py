@@ -708,3 +708,109 @@ def test_cuda_sample_mask_matches_cpu(cuda):
                           torch.from_numpy(debug).to(cuda), th)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), want)
+
+
+# -- the query layer on the card --------------------------------------------
+
+
+def _query_requests(store, n_services=8):
+    from zipkin_tpu_torch.query import BinaryAnnotationQuery, Order, \
+        QueryRequest
+
+    orders = list(Order)
+    out = []
+    for i, svc in enumerate(sorted(store.get_all_service_names())
+                            [:n_services]):
+        names = sorted(store.get_span_names(svc))
+        for j, kw in enumerate((
+                {}, {"span_name": names[0]},
+                {"annotations": ("some custom annotation",)},
+                {"binary_annotations": (BinaryAnnotationQuery(
+                    "http.uri", b"/api/widgets"),)},
+                {"span_name": names[-1],
+                 "annotations": ("some custom annotation",)})):
+            for limit in (10, 100):
+                out.append(QueryRequest(
+                    svc, limit=limit, end_ts=1 << 62,
+                    order=orders[(i + j + limit) % len(orders)], **kw))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_query_service_matches_cpu(cuda, tmp_path):
+    """A QueryService over a card window store against one over its CPU
+    twin: eight threads' requests (coalesced on the executor thread,
+    which reads on the default stream under the store's state lock)
+    equal the CPU service's serial answers, and so do the combos; the
+    sketch tier equals the card store's own reads; ``checkpoint.save``
+    drains the engine before its cut."""
+    import threading
+
+    from zipkin_tpu_torch import checkpoint, obs
+    from zipkin_tpu_torch.query import QueryService
+
+    applies = _window_applies(n_applies=4)
+    card = _window_store(device="cuda", registry=obs.Registry())
+    cpu = _window_store(device="cpu", registry=obs.Registry())
+    for spans in applies:
+        card.apply(spans)
+        cpu.apply(spans)
+    on_card = QueryService(card, registry=obs.Registry())
+    on_cpu = QueryService(cpu, coalesce_window_s=0.0,
+                          registry=obs.Registry())
+    streams = []
+    multi = card.get_trace_ids_multi
+
+    def noted(queries):
+        streams.append((threading.current_thread().name,
+                        torch.cuda.current_stream().cuda_stream))
+        return multi(queries)
+
+    card.get_trace_ids_multi = noted
+    try:
+        reqs = _query_requests(cpu)
+        want = [on_cpu.get_trace_ids(r) for r in reqs]
+        assert sum(bool(w.trace_ids) for w in want) > len(reqs) // 2
+        got = [None] * len(reqs)
+        errors = []
+
+        def reader(k):
+            try:
+                for i in range(k, len(reqs), 8):
+                    got[i] = on_card.get_trace_ids(reqs[i])
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+
+        threads = [threading.Thread(target=reader, args=(k,))
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not errors and got == want
+        assert on_card.coalescer.queries > 0
+        # The executor thread reads on the stream every store read uses.
+        main = torch.cuda.current_stream().cuda_stream
+        assert streams and set(streams) == {("zipkin-query-exec", main)}
+        tids = sorted({t for w in want for t in w.trace_ids})[:50]
+        assert (on_card.get_trace_combos_by_ids(tids)
+                == on_cpu.get_trace_combos_by_ids(tids))
+        eng = on_card.engine
+        for svc in sorted(card.get_all_service_names())[:8]:
+            assert eng.get_span_names(svc) == card.get_span_names(svc)
+            assert (eng.service_duration_quantiles(svc, [0.5, 0.99])
+                    == card.service_duration_quantiles(svc, [0.5, 0.99]))
+            assert eng.top_annotations(svc) == card.top_annotations(svc)
+            assert (eng.windowed_quantiles(svc, [0.5, 0.99])
+                    == card.windowed_quantiles(svc, [0.5, 0.99]))
+        assert eng.estimated_unique_traces() == \
+            card.estimated_unique_traces()
+        drained = []
+        orig = eng.drain
+        eng.drain = lambda: (drained.append(True), orig())[1]
+        checkpoint.save(card, str(tmp_path / "ckpt"))
+        assert drained
+    finally:
+        on_card.close()
+        on_cpu.close()
+    assert not on_card.engine.executor._thread.is_alive()

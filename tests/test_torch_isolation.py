@@ -67,14 +67,21 @@ def test_package_imports_without_jax():
             "zipkin_tpu_torch.ingest.receiver, "
             "zipkin_tpu_torch.ingest.scribe_server, "
             "zipkin_tpu_torch.ingest.kafka, zipkin_tpu_torch.client, "
-            "zipkin_tpu_torch.aggregate, zipkin_tpu_torch.aggregate.job; "
+            "zipkin_tpu_torch.aggregate, zipkin_tpu_torch.aggregate.job, "
+            "zipkin_tpu_torch.models.trace, zipkin_tpu_torch.query, "
+            "zipkin_tpu_torch.query.request, zipkin_tpu_torch.query.adjusters, "
+            "zipkin_tpu_torch.query.coalesce, zipkin_tpu_torch.query.engine, "
+            "zipkin_tpu_torch.query.service, zipkin_tpu_torch.api, "
+            "zipkin_tpu_torch.api.query_extractor; "
             "from zipkin_tpu_torch.store.torch_store import TorchSpanStore; "
             "from zipkin_tpu_torch.store.archive import TieredSpanStore; "
             "from zipkin_tpu_torch.store.device import "
             "recompute_dep_moments, dep_link_moments; "
             "assert TorchSpanStore.write_thrift and "
             "TieredSpanStore.write_thrift; "
-            "from zipkin_tpu_torch.client import B3Headers, Tracer")
+            "from zipkin_tpu_torch.client import B3Headers, Tracer; "
+            "from zipkin_tpu_torch.query import QueryService, QueryEngine; "
+            "from zipkin_tpu_torch.api import extract_query")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 

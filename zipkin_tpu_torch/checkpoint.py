@@ -309,6 +309,13 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
     truncated. A ``TieredSpanStore`` saves as its hot store plus the
     segment manifest and blobs (segments add host IO only, never
     device time under the locks)."""
+    # Resident-query-executor quiesce (query/engine.py): wait for any
+    # in-flight coalesced query read to finish before the gather
+    # begins, so the cut never interleaves with a standing executor's
+    # batch (the ordered-shutdown contract: drain-queries →
+    # drain-pipeline → seal → gather).
+    for eng in getattr(store, "query_engines", lambda: ())():
+        eng.drain()
     tiered = (store if getattr(store, "archive", None) is not None
               and hasattr(store, "hot") else None)
     if tiered is not None:
