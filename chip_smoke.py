@@ -138,6 +138,23 @@ nvcc per source, started together), then
    p50/p99, requests a launch, reads/s, request ms split by what they
    overlapped (a launch, a long collector pause), the collector's
    pauses by generation and the card's idle share over the drive.
+   Inside it, ``http_drive`` serves the same store through the port's
+   ``ApiServer`` on a socket, with the daemon's collector behind it:
+   every pool request as ``GET /api/query`` must equal the direct
+   ``QueryService`` answer, the known traces' ``/api/trace`` an oracle
+   server's, and the catalog, dependency and quantile routes
+   ``api.handle``; eight readers send 2,000 requests through the
+   sockets with no launch landing (client ms, the server's handle ms,
+   the engine's serve ms by tier, the HTTP share, reads/s, idle share);
+   three ``POST /scribe`` calls of 2,048 entries with 20 late known
+   traces must read back equal to an oracle, with K1 and both K2 halves
+   once a step (the ``http`` entry of ``launches_by_path``); a
+   self-traced request must read back by its echoed id; ``/metrics``
+   must parse as Prometheus text with every store counter, in both
+   forms; ``POST /debug/profile`` must answer 200 with CUDA kernels in
+   its trace (reads sent meanwhile) and a second capture 409; and ten
+   ``/api/combo`` reads through a server over the paged 2^14 store must
+   launch K3 and equal the CPU twin's server.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -158,6 +175,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -307,14 +325,26 @@ def time_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
 
 
 def device_ms(torch, fn, kernel, reps: int = 10):
-    """Mean device milliseconds of the device activities whose name
-    holds ``kernel`` (a string, or a tuple of strings: any of them) in
-    one ``fn`` call (torch.profiler's CUDA activity): no host launch
-    gaps, and a 256 MB fill between calls so each starts with the 50 MB
-    L2 cold, as a read on the store finds it. The fill writes ones, so
-    it is a kernel and never a memset. "not measured" off the card."""
+    """Mean device milliseconds, a call, of the device activities whose
+    name holds ``kernel`` (a string, or a tuple of strings: any of them)
+    in ``fn`` calls (torch.profiler's CUDA activity): no host launch
+    gaps, and a 256 MB fill before each call so each starts with the
+    50 MB L2 cold, as a read on the store finds it. The fill writes
+    ones, so it is a kernel and never a memset. "not measured" off the
+    card; see ``device_profile`` for the calls it counts."""
+    return device_profile(torch, fn, kernel, reps)[0]
+
+
+def device_profile(torch, fn, kernel, reps: int = 10, warm: int = 3):
+    """``device_ms`` and what the profile held. The profiler does not
+    report the first few activities of a capture (run 1 of PR 11: the
+    first two to five of 20), so ``warm`` calls run first inside it, and
+    the mean is over the last ``reps`` calls whose fill it reported:
+    their matched activities (those that start after the first of those
+    fills) over their count. ``info``: the calls counted, the activities
+    matched in them, and by name those the filter matched neither."""
     if not torch.cuda.is_available():
-        return "not measured"
+        return "not measured", {}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -323,14 +353,51 @@ def device_ms(torch, fn, kernel, reps: int = 10):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(warm + reps):
             flush.fill_(1)
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and any(n in e.name for n in names))
-    return busy / reps / 1e3
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    fills = [e.time_range.start for e in events
+             if "FillFunctor" in e.name][-reps:]
+    info = {"calls_counted": len(fills), "matched": 0, "reps": reps,
+            "unmatched": {}}
+    if not fills:
+        return "not measured", info
+    busy = 0.0
+    for e in events:
+        if e.time_range.start < fills[0] or "FillFunctor" in e.name:
+            continue
+        if any(n in e.name for n in names):
+            busy += e.time_range.end - e.time_range.start
+            info["matched"] += 1
+        else:
+            info["unmatched"][e.name] = info["unmatched"].get(e.name, 0) + 1
+    return busy / len(fills) / 1e3, info
+
+
+def checked_device_ms(torch, fn, kernel, bound_ms, launches: int,
+                      what: str, reps: int = 10, tries: int = 3):
+    """``device_ms`` of a call that launches ``kernel`` ``launches``
+    times, held to what a profile can show: all ``reps`` calls counted,
+    each call's launches all matched by the name filter, and a time no
+    less than the call's bound. A profile that falls short is taken
+    again (``tries`` in all); then the phase fails."""
+    seen = []
+    for _ in range(tries):
+        ms, info = device_profile(torch, fn, kernel, reps)
+        if not torch.cuda.is_available():
+            return ms, info
+        seen.append((ms, info))
+        calls = info["calls_counted"]
+        if calls == reps and info["matched"] == launches * calls \
+                and ms != "not measured" and ms >= bound_ms:
+            return ms, {**info, "tries": len(seen)}
+    fail(f"{what}: device time of {kernel} under its bound, or its "
+         f"launches not all reported, in {tries} profiles: " + json.dumps(
+             [{"device_ms": ms, **info} for ms, info in seen]))
 
 
 def union_us(intervals):
@@ -2764,7 +2831,7 @@ def query_ops(scale, store, service, rng):
             fn = sketch[int(rng.integers(len(sketch)))]
             svc = svcs[int(rng.integers(len(svcs)))]
             ops.append(("sketch", lambda fn=fn, svc=svc: fn(svc)))
-    return ops, svcs, now_us
+    return ops, svcs, now_us, single + multi
 
 
 class IndexLog:
@@ -3001,8 +3068,8 @@ def query_path(torch, K, dev, scale, device):
     if engine.window_s != DEFAULT_COALESCE_WINDOW_S:
         fail(f"query path: the engine's window is {engine.window_s} s, not "
              f"the daemon's {DEFAULT_COALESCE_WINDOW_S}")
-    ops, svcs, now_us = query_ops(scale, store, service,
-                                  np.random.default_rng(53))
+    ops, svcs, now_us, pool = query_ops(scale, store, service,
+                                        np.random.default_rng(53))
     want = {op[1]: oracle_svc.get_trace_ids(op[1]) for op in ops
             if op[0] == "ids" and op[1].service_name in COLD_SERVICES}
     if sum(bool(w.trace_ids) for w in want.values()) < len(want) // 2:
@@ -3095,6 +3162,8 @@ def query_path(torch, K, dev, scale, device):
     cache = {"hits": engine.c_hits.value, "misses": engine.c_misses.value,
              "entries": len(engine.cache)}
     drain = query_drain(scale, store, service, ops)
+    http = http_drive(torch, K, scale, store, service, oracle_svc, gen,
+                      known, pool, device)
     service.close()
     if ex._thread is not None and ex._thread.is_alive():
         fail("query path: the executor thread outlived close()")
@@ -3137,6 +3206,11 @@ def query_path(torch, K, dev, scale, device):
         "kernel_launches": {k: launches[k] + paged["read_launches"][k]
                             for k in launches},
         "ingest_steps": steps,
+        "http": {**http, "paged_combos": paged["http"],
+                 "kernel_launches": {
+                     k: http["kernel_launches"][k]
+                     + paged["http"]["read_launches"][k]
+                     for k in launches}},
     }
     log("query path result: " + json.dumps(result))
     return result
@@ -3194,6 +3268,460 @@ def query_drain(scale, store, service, ops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The HTTP API over the query phase's store
+# ---------------------------------------------------------------------------
+
+HTTP_SCRIBE_CALLS = 3
+HTTP_LATE_KNOWN = 20
+PROM_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")*\})? \S+$')
+
+
+def serve_api(api):
+    """``api`` on 127.0.0.1, a free port, served from a thread: (server,
+    thread, base URL)."""
+    from zipkin_tpu_torch.api.server import (make_server,
+                                             serve_forever_in_thread)
+
+    server = make_server(api, "127.0.0.1", 0)
+    thread = serve_forever_in_thread(server)
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def stop_api(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=60)
+    if thread.is_alive():
+        fail("http: a server thread outlived its shutdown")
+
+
+def http_call(url, body=None, headers=None, timeout=120):
+    """(status, headers, body bytes) of a GET (or a POST of ``body``)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers=headers or {},
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, dict(e.headers), e.read()
+
+
+def direct_json(api, path, params=None):
+    """``api.handle`` called directly, as the JSON a socket would carry."""
+    status, payload = api.handle("GET", path, dict(params or {}))
+    return status, json.loads(json.dumps(payload))
+
+
+def query_params(qr):
+    """GET /api/query params that ``extract_query`` maps back to
+    ``qr``."""
+    from zipkin_tpu_torch.api.query_extractor import _ORDERS
+
+    p = {"serviceName": qr.service_name, "endTs": str(qr.end_ts),
+         "limit": str(qr.limit),
+         "order": {v: k for k, v in _ORDERS.items()}[qr.order]}
+    if qr.span_name:
+        p["spanName"] = qr.span_name
+    terms = list(qr.annotations) + [f"{b.key}={b.value.decode()}"
+                                    for b in qr.binary_annotations]
+    if terms:
+        p["annotationQuery"] = " and ".join(terms)
+    return p
+
+
+def query_json(service, qr):
+    """The JSON of ``GET /api/query`` built from the service's direct
+    answer."""
+    from zipkin_tpu_torch.api.server import _summary_json
+    from zipkin_tpu_torch.ingest.receiver import _hex_id
+
+    resp = service.get_trace_ids(qr)
+    summaries = service.get_trace_summaries_by_ids(resp.trace_ids)
+    return json.loads(json.dumps({
+        "traceIds": [_hex_id(t) for t in resp.trace_ids],
+        "startTs": resp.start_ts, "endTs": resp.end_ts,
+        "summaries": [_summary_json(s) for s in summaries]}))
+
+
+def sketch_mark(h):
+    with h._lock:
+        return h.counts.copy(), h._sum, int(h.moments.n)
+
+
+def sketch_since(h, mark):
+    """Count, mean and p50/p99 (ms) of what a latency sketch took since
+    ``mark``."""
+    from zipkin_tpu_torch.ops.quantile import quantiles_host
+
+    counts, total, n = sketch_mark(h)
+    dn = n - mark[2]
+    if dn <= 0:
+        return {"count": 0}
+    p50, p99 = quantiles_host(counts - mark[0], h.gamma, h.min_value,
+                              [0.5, 0.99])
+    return {"count": dn, "mean_ms": (total - mark[1]) / dn * 1e3,
+            "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3}
+
+
+def http_drive(torch, K, scale, store, service, oracle_svc, gen, known,
+               pool, device):
+    """The daemon's HTTP API over the query phase's full-width window
+    store, driven through sockets: ``ApiServer(service, Collector(store,
+    Sampler(1.0), max_queue=500, concurrency=10, self_trace=True))`` on
+    127.0.0.1. On the quiescent store: each pool request as ``GET
+    /api/query`` must equal the JSON of the direct ``QueryService``
+    answer; the known traces' ``/api/trace`` the oracle server's; the
+    catalog, dependency and quantile routes ``api.handle`` called
+    directly. Then eight readers send the pool through the sockets
+    (timed: client ms, the server's handle ms, the engine's serve ms by
+    tier, the HTTP share, reads/s, idle share; no launch may land); a
+    few ``POST /scribe`` calls of 2,048 entries with late known traces
+    (read back equal to an oracle; K1 and both K2 halves once a step);
+    a self-traced request read back by its echoed id; ``/metrics`` in
+    both forms; and ``POST /debug/profile`` with reads meanwhile (CUDA
+    kernels in its trace; a second capture answers 409). The API's
+    tracer samples nothing outside the self-trace check, so the reads
+    add no span and no launch."""
+    from urllib.parse import quote
+
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.api import ApiServer, extract_query
+    from zipkin_tpu_torch.client import QueryClient
+    from zipkin_tpu_torch.ingest import Collector
+    from zipkin_tpu_torch.ingest.receiver import _hex_id
+    from zipkin_tpu_torch.obs import profile as obs_profile
+    from zipkin_tpu_torch.query import QueryService
+    from zipkin_tpu_torch.sampler import Sampler
+    from zipkin_tpu_torch.store.memory import InMemorySpanStore
+    from zipkin_tpu_torch.wire.thrift import span_to_scribe_message
+
+    t_phase = time.perf_counter()
+    reg = obs.Registry()
+    collector = Collector(store, sampler=Sampler(1.0), max_queue=500,
+                          concurrency=10, self_trace=True, registry=reg)
+    api = ApiServer(service, collector, registry=reg)
+    oracle_api = ApiServer(oracle_svc, self_trace=False,
+                           registry=obs.Registry())
+    api.tracer.sample_rate = 0.0
+    server, thread, base = serve_api(api)
+    qc = QueryClient(base, timeout=120)
+    out = {}
+    try:
+        batches0 = store.counter_block()["batches"]
+        # -- answers on the quiescent store ---------------------------------
+        # The routes first: the engine's first dependency read runs the
+        # store's pending sweep, a frontier move, before any answer is
+        # kept.
+        t = time.perf_counter()
+        known_tids = [tr[0].trace_id for tr in known]
+        for tid in known_tids:
+            want = direct_json(oracle_api, f"/api/trace/{_hex_id(tid)}")
+            if want[0] != 200 or qc.trace(tid) != want[1]:
+                fail(f"http: /api/trace/{_hex_id(tid)} differs from the "
+                     f"oracle server's")
+        svcs = sorted(store.get_all_service_names())
+        routes = [("/api/services", {}), ("/api/dependencies", {})]
+        for svc in COLD_SERVICES + svcs[:5]:
+            routes += [("/api/spans", {"serviceName": svc}),
+                       ("/api/quantiles", {"serviceName": svc,
+                                           "q": "0.5,0.9,0.99"})]
+        for path, params in routes:
+            direct_json(api, path, params)  # the engine's first compute
+            qs = "&".join(f"{k}={quote(v, safe='')}"
+                          for k, v in params.items())
+            status, _, body = http_call(base + path + ("?" + qs if qs
+                                                       else ""))
+            if (status, json.loads(body)) != direct_json(api, path, params):
+                fail(f"http: {path} {params} over the socket differs from "
+                     f"api.handle")
+        wrong, nonempty = [], 0
+        for qr in pool:
+            params = query_params(qr)
+            if extract_query(params) != qr:
+                fail(f"http: /api/query params do not map back to {qr}")
+            got = qc.query(quote(qr.service_name, safe=""), **{
+                k: quote(v, safe="") for k, v in params.items()
+                if k != "serviceName"})
+            want = query_json(service, qr)
+            wrong += [qr] if got != want else []
+            nonempty += bool(want["traceIds"])
+        if wrong:
+            fail(f"http: {len(wrong)} of {len(pool)} /api/query answers "
+                 f"differ from the direct QueryService's, first {wrong[0]}")
+        if nonempty < len(pool) // 2:
+            fail(f"http: only {nonempty} of {len(pool)} pool requests "
+                 f"answer any trace")
+        out["answers"] = {"pool_requests": len(pool),
+                          "pool_nonempty": nonempty,
+                          "known_traces": len(known_tids),
+                          "routes": len(routes),
+                          "s": time.perf_counter() - t}
+        if store.counter_block()["batches"] != batches0:
+            fail("http: the answers phase launched an ingest step")
+
+        # -- timed reads through the sockets --------------------------------
+        rng = np.random.default_rng(58)
+        reqs = [pool[int(rng.integers(len(pool)))]
+                for _ in range(scale.query_requests)]
+        handle_h = api.request_latency.labels(route="/api/query")
+        tier_h = {tier: service.engine.h_serve.labels(tier=tier)
+                  for tier in ("sketch", "cache", "index")}
+        marks = {"handle": sketch_mark(handle_h),
+                 **{k: sketch_mark(h) for k, h in tier_h.items()}}
+        client_ms = [[] for _ in range(scale.query_readers)]
+        errors = []
+        args = [(qr.service_name, {k: quote(v, safe="")
+                                   for k, v in query_params(qr).items()
+                                   if k != "serviceName"}) for qr in reqs]
+
+        def reader(k):
+            cl = QueryClient(base, timeout=120)
+            try:
+                for svc, params in args[k::scale.query_readers]:
+                    t0 = time.perf_counter()
+                    cl.query(quote(svc, safe=""), **params)
+                    client_ms[k].append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # surfaced below, on the main thread
+                errors.append(e)
+
+        K.reset_launches()
+        with DeviceIdle(torch, device) as idle:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=reader, args=(k,))
+                       for k in range(scale.query_readers)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            drive_s = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in threads):
+            fail(f"http: a reader failed: {errors[:1]!r}")
+        if any(K.LAUNCHES.values()) or \
+                store.counter_block()["batches"] != batches0:
+            fail(f"http: the timed reads launched {dict(K.LAUNCHES)}")
+        cms = np.array([m for ms in client_ms for m in ms])
+        handle = sketch_since(handle_h, marks["handle"])
+        if handle["count"] != len(reqs) or cms.size != len(reqs):
+            fail(f"http: {handle['count']} handled, {cms.size} answered of "
+                 f"{len(reqs)} requests")
+        out["timed_reads"] = {
+            "readers": scale.query_readers, "requests": len(reqs),
+            "drive_s": drive_s, "reads_per_s": len(reqs) / drive_s,
+            "client_ms_p50": float(np.percentile(cms, 50)),
+            "client_ms_p99": float(np.percentile(cms, 99)),
+            "client_ms_mean": float(cms.mean()),
+            "handle_ms": handle,
+            "serve_by_tier": {k: sketch_since(h, marks[k])
+                              for k, h in tier_h.items()},
+            "http_ms_mean": float(cms.mean()) - handle["mean_ms"],
+            "http_share": 1.0 - handle["mean_ms"] / float(cms.mean()),
+            "idle_share": (idle.result["idle_share"] if idle.result
+                           else "not measured"),
+            "device_busy_ms": (idle.result["device_busy_ms"]
+                               if idle.result else "not measured")}
+        log("http (timed reads): " + json.dumps(out["timed_reads"]))
+
+        # -- ingest through POST /scribe ------------------------------------
+        late_ts = WIN_BASE_US + (scale.query_launches + scale.query_writes
+                                 + 1) * WIN_STEP_US
+        late = cold_known(HTTP_LATE_KNOWN, 57, late_ts)
+        batch, _, _ = gen.next_batch(
+            HTTP_SCRIBE_CALLS * scale.scribe_call // 7, base_ts=late_ts)
+        stream = [span_to_scribe_message(s)
+                  for s in store.codec.decode(batch)]
+        size = scale.scribe_call
+        calls = [[("zipkin", m) for m in stream[i:i + size]]
+                 for i in range(0, len(stream), size)]
+        for k, tr in enumerate(late):
+            c = k * len(calls) // len(late)
+            calls[c] = [("zipkin", span_to_scribe_message(s))
+                        for s in tr] + calls[c]
+        sent = len(stream) + sum(len(tr) for tr in late)
+        if http_call(base + "/vars/sampleRate")[2] != b'{"sampleRate": 1.0}':
+            fail("http: the collector's sample rate is not 1.0")
+        K.reset_launches()
+        steps0 = store.counter_block()["batches"]
+        t = time.perf_counter()
+        acks = []
+        for call in calls:
+            body = json.dumps([{"category": c, "message": m}
+                               for c, m in call]).encode()
+            t0 = time.perf_counter()
+            status, _, resp = http_call(base + "/scribe", body)
+            acks.append((time.perf_counter() - t0) * 1e3)
+            if (status, json.loads(resp)) != (200, {"result": "OK"}):
+                fail(f"http: POST /scribe answered {status} {resp[:200]!r}")
+        collector.flush()
+        sync(torch, device)
+        ingest_s = time.perf_counter() - t
+        late_store = InMemorySpanStore()
+        for tr in late:
+            late_store.apply(tr)
+        late_svc = QueryService(late_store, registry=obs.Registry())
+        late_api = ApiServer(late_svc, self_trace=False,
+                             registry=obs.Registry())
+        try:
+            for tr in late:
+                tid = tr[0].trace_id
+                want = direct_json(late_api, f"/api/trace/{_hex_id(tid)}")
+                if want[0] != 200 or qc.trace(tid) != want[1]:
+                    fail(f"http: late trace {_hex_id(tid)} read back "
+                         f"differs from the oracle's")
+        finally:
+            late_svc.close()
+        # One self-traced request: its span, found by the echoed id.
+        api.tracer.sample_rate = 1.0
+        try:
+            _, hdrs, _ = http_call(base + "/api/services", headers={
+                "X-B3-TraceId": "5eed", "X-B3-SpanId": "77"})
+        finally:
+            api.tracer.sample_rate = 0.0
+        collector.flush()
+        sync(torch, device)
+        spans = qc.trace(0x5EED)
+        if [s["id"] for s in spans] != [hdrs.get("X-B3-SpanId")] or \
+                spans[0]["name"] != "get /api/services":
+            fail(f"http: the self-traced request's span reads back as "
+                 f"{spans}")
+        launches = dict(K.LAUNCHES)
+        steps = store.counter_block()["batches"] - steps0
+        check_launches(launches, ("flat_histogram", "arena_claim",
+                                  "arena_write"), device, "http", steps)
+        for half in ("arena_claim", "arena_write"):
+            if device.type == "cuda" and launches[half] != steps:
+                fail(f"http: {half} launched {launches[half]} times in "
+                     f"{steps} steps, not once a step")
+        if steps < len(calls):
+            fail(f"http: {steps} ingest steps for {len(calls)} calls")
+        if collector.spans_stored != sent + 1:
+            fail(f"http: the collector stored {collector.spans_stored} "
+                 f"spans, {sent} sent and 1 self-traced")
+        out["ingest"] = {"calls": len(calls), "spans": sent,
+                         "late_known": len(late), "steps": steps,
+                         "ack_ms": acks, "s": ingest_s}
+        out["kernel_launches"] = launches
+        out["ingest_steps"] = steps
+
+        # -- /metrics -------------------------------------------------------
+        status, hdrs, body = http_call(base + "/metrics")
+        text = body.decode()
+        bad = [ln for ln in text.splitlines()
+               if ln and not ln.startswith("#") and not PROM_LINE.match(ln)]
+        if status != 200 or bad:
+            fail(f"http: /metrics is not Prometheus text: {bad[:3]}")
+        keys = set(store.counters())
+        have = set(re.findall(r'^zipkin_store_counter\{name="([^"]+)"\} ',
+                              text, re.M))
+        if have != keys:
+            fail(f"http: /metrics store counters {sorted(have ^ keys)} "
+                 f"missing or extra")
+        status, _, body = http_call(base + "/metrics?format=json")
+        mj = json.loads(body)
+        new = ("jit_compiles", "query_jit_compiles", "rank_path_counting",
+               "scatter_path_pallas")
+        if {k[6:] for k in mj if k.startswith("store.")} != keys or \
+                not all(f"store.{k}" in mj for k in new):
+            fail("http: /metrics?format=json lacks a store counter")
+        out["metrics"] = {"lines": len(text.splitlines()),
+                          "store_counters": len(keys),
+                          **{k: mj[f"store.{k}"] for k in new}}
+
+        # -- POST /debug/profile with reads meanwhile -----------------------
+        got, stop = {}, threading.Event()
+
+        def capture():
+            got["resp"] = http_call(base + "/debug/profile?seconds=0.5",
+                                    b"")
+
+        reads = [0]
+
+        def read_meanwhile():
+            while not stop.is_set():
+                qc.trace(known_tids[reads[0] % len(known_tids)])
+                reads[0] += 1
+
+        cap = threading.Thread(target=capture)
+        cap.start()
+        deadline = time.perf_counter() + 60
+        while not obs_profile._capture_lock.locked():
+            if time.perf_counter() > deadline or not cap.is_alive():
+                break
+            time.sleep(0.001)
+        busy = http_call(base + "/debug/profile?seconds=0.5", b"")
+        rd = threading.Thread(target=read_meanwhile)
+        rd.start()
+        cap.join(timeout=300)
+        stop.set()
+        rd.join(timeout=300)
+        status, _, body = got.get("resp", (None, None, b"{}"))
+        if status != 200 or busy[0] != 409:
+            fail(f"http: /debug/profile answered {status} {body[:200]!r}, "
+                 f"the second capture {busy[0]}")
+        prof = json.loads(body)
+        try:
+            with open(os.path.join(prof["profileDir"],
+                                   obs_profile.TRACE_FILE)) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            shutil.rmtree(prof["profileDir"], ignore_errors=True)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if device.type == "cuda" and not kernels:
+            fail(f"http: the profile of {reads[0]} reads holds no CUDA "
+                 f"kernel")
+        out["profile"] = {"seconds": prof["seconds"], "reads": reads[0],
+                          "events": len(events),
+                          "kernel_events": len(kernels),
+                          "busy_status": busy[0]}
+    finally:
+        stop_api(server, thread)
+        collector.close()
+    out["s"] = time.perf_counter() - t_phase
+    log("http: " + json.dumps({k: v for k, v in out.items()
+                               if k != "timed_reads"}))
+    return out
+
+
+def paged_http_combos(K, card, cpu, tids, device):
+    """``GET /api/combo/<id>`` through a server over the paged card
+    store's ``QueryService``: each equals the same route of a server over
+    its CPU twin, and the page gather launches (single-id reads miss the
+    engine's cache, which holds the 25-id chunks read before)."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.api import ApiServer
+    from zipkin_tpu_torch.ingest.receiver import _hex_id
+
+    card_api = ApiServer(card, self_trace=False, registry=obs.Registry())
+    cpu_api = ApiServer(cpu, self_trace=False, registry=obs.Registry())
+    server, thread, base = serve_api(card_api)
+    try:
+        K.reset_launches()
+        t = time.perf_counter()
+        for tid in tids:
+            path = f"/api/combo/{_hex_id(tid)}"
+            status, _, body = http_call(base + path)
+            want = direct_json(cpu_api, path)
+            if want[0] != 200 or (status, json.loads(body)) != want:
+                fail(f"query path (paged): {path} over the socket differs "
+                     f"from the CPU twin's server")
+        read_s = time.perf_counter() - t
+        launches = dict(K.LAUNCHES)
+    finally:
+        stop_api(server, thread)
+    if device.type == "cuda" and launches["paged_page_gather"] <= 0:
+        fail("query path (paged): the combos through the server did not "
+             "launch the page gather")
+    return {"combos": len(tids), "read_s": read_s,
+            "read_launches": launches}
+
+
 def query_paged(torch, K, dev, scale, device, known, oracle_svc):
     """``QueryService`` over a paged store at 2^14 (128-row pages) on the
     card and over its CPU twin: the known traces' combos (trace reads
@@ -3242,12 +3770,13 @@ def query_paged(torch, K, dev, scale, device, known, oracle_svc):
                 if a != cpu.get_trace_ids(qr) or \
                         a != oracle_svc.get_trace_ids(qr):
                     fail(f"query path (paged): {svc} {order} differs")
+        http = paged_http_combos(K, card, cpu, tids[:10], device)
     finally:
         for s in services.values():
             s.close()
     out = {"capacity": cfg.capacity, "pages": cfg.n_pages,
            "combos": len(got), "combos_read_s": read_s,
-           "read_launches": launches}
+           "read_launches": launches, "http": http}
     log("query path (paged): " + json.dumps(out))
     return out
 
@@ -3370,17 +3899,21 @@ def hist_phase(torch, K, rec, n_sites: int = 7, alone=None):
 
     fused = lambda: K.histogram_update_many(scratch)  # noqa: E731
     rows = [i.numel() for _, i, _ in scratch]
+    bound_ms = bound(sum(rows), sum(touched))
+    dev_ms, profiled = checked_device_ms(
+        torch, fused, "hist_multi", bound_ms, 1,
+        f"flat_histogram ({n_sites} sites)")
     row = {"sites": len(scratch), "rows": sum(rows),
            "cells": sum(c.numel() for c, _, _ in scratch),
            "touched": sum(touched), "ms": time_ms(torch, fused),
            "host_us": host_us(fused),
-           "device_ms": device_ms(torch, fused, "hist_multi"),
+           "device_ms": dev_ms, "device_profile": profiled,
            "plain_ms": time_ms(torch, lambda: K.histogram_update_many_plain(
                scratch)),
            "library_ms": time_ms(torch, library),
            "library": f"{n_sites} index_put_(accumulate=True) calls in a "
                       f"row",
-           "bound_ms": bound(sum(rows), sum(touched)), "bound_by": "bytes",
+           "bound_ms": bound_ms, "bound_by": "bytes",
            "max_abs_err": 0}
     site_rows = []
     for k, (counts, idx, _) in enumerate(rec.hist):
@@ -3398,14 +3931,17 @@ def hist_phase(torch, K, rec, n_sites: int = 7, alone=None):
             ok = (i64 >= 0) & (i64 < flat.shape[0])
             flat.index_put_((i64[ok],), ones[ok], accumulate=True)
 
+        site_bound = bound(idx.numel(), touched[k])
         site_rows.append({
             "site": k, "cells": counts.numel(), "rows": idx.numel(),
             "touched": touched[k], "ms": time_ms(torch, call),
-            "device_ms": device_ms(torch, call, "hist_multi"),
+            "device_ms": checked_device_ms(
+                torch, call, "hist_multi", site_bound, 1,
+                f"flat_histogram site {k} alone")[0],
             "plain_ms": time_ms(torch, lambda: K.histogram_update_plain(
                 c, idx)),
             "library_ms": time_ms(torch, lib_one),
-            "bound_ms": bound(idx.numel(), touched[k]), "max_abs_err": err})
+            "bound_ms": site_bound, "max_abs_err": err})
     for r in site_rows:
         log("flat_histogram site: " + json.dumps(r))
     if row["device_ms"] != "not measured" and alone is None:
@@ -3666,7 +4202,8 @@ def gather_phase(torch, K, rec):
     that list with hole pages (front, middle, past the last page, end);
     times the call (column table cached, and rebuilt every call), the
     kernel alone, the twin and ``torch.index_select`` on a pre-stacked
-    [14, capacity] int64 matrix (the stack itself not timed)."""
+    [14, capacity] int64 matrix, without and with the stack of the 14
+    columns timed."""
     if rec.gather is None:
         fail("no paged_page_gather call was recorded")
     cols, pages, R = rec.gather
@@ -3699,6 +4236,10 @@ def gather_phase(torch, K, rec):
     lib = time_ms(torch, lambda: torch.index_select(mat, 1, slots),
                   reps=20)
     del mat
+    # Like for like: K3 reads the columns in place, so the library route
+    # pays the stack of the 14 columns too.
+    lib_stacked = time_ms(torch, lambda: torch.index_select(
+        torch.stack([c.to(torch.int64) for c in cols]), 1, slots), reps=20)
     k = pages.numel()
     k_real = int(((pages >= 0) & (pages < n_pages)).sum())
     read_b = k_real * R * sum(c.element_size() for c in cols)
@@ -3708,6 +4249,7 @@ def gather_phase(torch, K, rec):
            "cases": ["main-path read", "hole pages"], "ms": ms,
            "uncached_ms": uncached_ms, "device_ms": dev_ms,
            "plain_ms": plain, "library_ms": lib,
+           "library_with_stack_ms": lib_stacked,
            "bound_ms": (read_b + write_b) / H100_BYTES_PER_S * 1e3,
            "bytes": read_b + write_b, "max_abs_err": 0}
     log("paged_page_gather: " + json.dumps(row))
@@ -3879,6 +4421,8 @@ def main() -> int:
     coll = phase("collector_path", collector_path, torch, K, dev, scale,
                  device, wresult)
     query = phase("query_path", query_path, torch, K, dev, scale, device)
+    phase_s["http (inside query_path)"] = query["http"]["s"]
+    log(f"phase http (inside query_path): {query['http']['s']:.1f} s")
     piped = phase("pipeline_path", pipeline_path, torch, K, dev, scale,
                   device)
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
@@ -3901,7 +4445,8 @@ def main() -> int:
                                    + cpaged["read_launches"][k]
                                    for k in cpaged["kernel_launches"]},
                "collector": coll["kernel_launches"],
-               "query": query["kernel_launches"]}
+               "query": query["kernel_launches"],
+               "http": query["http"]["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -3911,7 +4456,8 @@ def main() -> int:
                      "cold_tier": cold["ingest_steps"],
                      "cold_tier_paged": cpaged["ingest_steps"],
                      "collector": coll["ingest_steps"],
-                     "query": query["ingest_steps"]}
+                     "query": query["ingest_steps"],
+                     "http": query["http"]["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",
@@ -3966,6 +4512,7 @@ def main() -> int:
          "plain_ms": gather["plain_ms"],
          "bound_ms": gather["bound_ms"], "bound_by": "bytes",
          "library_ms": gather["library_ms"],
+         "library_with_stack_ms": gather["library_with_stack_ms"],
          "shape": {"pages": gather["pages"],
                    "page_rows": gather["page_rows"],
                    "columns": gather["columns"]}},

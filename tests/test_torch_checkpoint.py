@@ -689,3 +689,32 @@ def test_adopt_state_reseeds_clocks():
         tids)
     assert np.array_equal(dst.ensure_sketch_mirror().arrays()[0],
                           src.sketch_mirror.arrays()[0])
+
+
+def test_tiered_load_then_capture_matches_reference(tmp_path):
+    """A tiered snapshot loaded and captured at once: the port's load
+    writes the capture clocks under the capture locks, and the frontier
+    and ``_sealed_upto`` after an immediate ``capture_now()`` equal the
+    reference's load of the same snapshot, segments too."""
+    from zipkin_tpu.store.archive import TieredSpanStore as RefTiered
+
+    n = 3 * CFG.capacity // 2 + 40
+    ref = RefTiered(TpuSpanStore(CFG), params=PARAMS)
+    _tiered_drive(n, ref=ref)
+    path = str(tmp_path / "ckpt")
+    ref_checkpoint.save(ref, path)
+    want, got = ref_checkpoint.load(path), checkpoint.load(path,
+                                                           device="cpu")
+
+    def clocks(t):
+        return (t.hot._cap_upto, t.hot._cap_a, t.hot._cap_b,
+                t.hot._sealed_upto, t.hot.sealed_frontier())
+
+    assert clocks(got) == clocks(want)
+    assert got.hot._cap_upto < got.hot._wp
+    want.capture_now()
+    got.capture_now()
+    assert clocks(got) == clocks(want)
+    assert got.hot._sealed_upto == got.hot._cap_upto == got.hot._wp
+    assert _segs(got) == [(s.seg_id, s.gid_lo, s.gid_hi, s.to_bytes())
+                          for s in want.archive.snapshot()]

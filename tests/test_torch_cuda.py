@@ -814,3 +814,76 @@ def test_cuda_query_service_matches_cpu(cuda, tmp_path):
         on_card.close()
         on_cpu.close()
     assert not on_card.engine.executor._thread.is_alive()
+
+
+# -- the HTTP API on the card ------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_api_server_matches_cpu(cuda):
+    """``ApiServer`` over a card store behind a real socket: ``POST
+    /api/spans`` lands in the card store's steps (K1 and both K2 halves
+    once a step), ``GET /api/trace/<id>`` equals the same server over the
+    CPU twin, and ``/metrics`` carries every store counter, with the
+    K1/K2 path flag set."""
+    import json
+    import re
+    import urllib.request
+
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.api import server as api_server
+    from zipkin_tpu_torch.ingest import Collector
+    from zipkin_tpu_torch.ingest.receiver import span_to_json
+    from zipkin_tpu_torch.query import QueryService
+
+    applies = _window_applies(n_applies=3, n_traces=200)
+    answers = []
+    for device in ("cuda", "cpu"):
+        store = _window_store(device=device, registry=obs.Registry())
+        col = Collector(store, concurrency=1, registry=obs.Registry())
+        api = api_server.ApiServer(QueryService(store), col,
+                                   self_trace=False,
+                                   registry=obs.Registry())
+        server = api_server.make_server(api, "127.0.0.1", 0)
+        thread = api_server.serve_forever_in_thread(server)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            K.reset_launches()
+            for spans in applies:
+                req = urllib.request.Request(
+                    base + "/api/spans", method="POST",
+                    data=json.dumps([span_to_json(s)
+                                     for s in spans]).encode())
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    assert r.status == 202
+            col.flush()
+            steps = store.counter_block()["batches"]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert steps > len(applies)
+                assert {k: K.LAUNCHES[k] for k in (
+                    "flat_histogram", "arena_claim", "arena_write")} == {
+                    "flat_histogram": steps, "arena_claim": steps,
+                    "arena_write": steps}
+            tids = sorted({s.trace_id for s in applies[-1]})[:20]
+            got = []
+            for tid in tids:
+                with urllib.request.urlopen(
+                        f"{base}/api/trace/{tid & (2**64 - 1):x}",
+                        timeout=60) as r:
+                    got.append(json.loads(r.read()))
+            with urllib.request.urlopen(base + "/metrics",
+                                        timeout=60) as r:
+                text = r.read().decode()
+            names = set(re.findall(
+                r'^zipkin_store_counter\{name="([^"]+)"\} ', text, re.M))
+            assert names == set(store.counters())
+            assert store.counters()["scatter_path_pallas"] == 1.0
+            answers.append(got)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            col.close()
+            api.query.close()
+    assert answers[0] == answers[1] and all(answers[0])

@@ -1,5 +1,6 @@
-"""The API layer's request parsing: GET params → ``QueryRequest``
-(``extract_query``, the port's copy of ``zipkin_tpu/api``'s). The JSON
-routes of ``zipkin_tpu/api/server.py`` come with the daemon."""
+"""The API layer: request parsing (``extract_query``) and the threaded
+HTTP server (``ApiServer``, ``make_server``), the port's copies of
+``zipkin_tpu/api``'s."""
 
 from zipkin_tpu_torch.api.query_extractor import extract_query  # noqa: F401
+from zipkin_tpu_torch.api.server import ApiServer, make_server  # noqa: F401

@@ -692,7 +692,10 @@ def load(path: str, device="cuda", config_defaults=None,
             upd["dep_overflow_ts"] = np.array([dev.I64_MIN, dev.I64_MAX],
                                               np.int64)
     t0 = time.perf_counter()
-    with store._lock, store._state_lock:
+    # _cap_lock before _state_lock (the store's order): the capture
+    # clocks below are _cap_lock's, and _sealed_upto its leaf
+    # _seal_lock's, as the reference writes them.
+    with store._lock, store._cap_lock, store._state_lock:
         leaves = store.state.leaves
         for k, v in upd.items():
             src = torch.from_numpy(np.asarray(v, order="C"))
@@ -728,7 +731,8 @@ def load(path: str, device="cuda", config_defaults=None,
             store._cap_upto = int(clocks["cap_upto"])
             store._cap_a = int(clocks["cap_a"])
             store._cap_b = int(clocks["cap_b"])
-            store._sealed_upto = int(clocks["sealed_upto"])
+            with store._seal_lock:
+                store._sealed_upto = int(clocks["sealed_upto"])
             store._wal_applied = int(clocks.get("wal_applied", 0))
         # The restored aggregates were never deltas on this process's
         # sketch mirror: ensure_sketch_mirror resyncs it on first read.

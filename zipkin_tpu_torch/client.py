@@ -1,5 +1,5 @@
-"""Client-side instrumentation (the zipkin-gems role), the port's copy
-of ``zipkin_tpu/client.py`` without its HTTP half.
+"""Client-side instrumentation + query client (the zipkin-gems role),
+the port's copy of ``zipkin_tpu/client.py``.
 
 Reference: the Ruby ``ZipkinTracer::RackHandler``
 (zipkin-gems/zipkin-tracer/lib/zipkin-tracer.rb:7-45) — B3 header
@@ -10,17 +10,20 @@ transport — re-expressed for python:
   X-B3-ParentSpanId / X-B3-Sampled
 - ``Tracer``: span lifecycle + transport (any callable taking spans —
   a Collector.accept, an HTTP poster, or a scribe sender)
-
-The WSGI middleware, the HTTP transport and the query client come with
-the port's HTTP server.
+- ``ZipkinWSGIMiddleware``: wraps a WSGI app, continuing or starting a
+  trace per request with sr/ss annotations
+- ``QueryClient``: typed access to the HTTP query API
+  (the zipkin-query gem role)
 """
 
 from __future__ import annotations
 
+import json
 import random
 import time
+import urllib.request
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 from zipkin_tpu_torch.models.constants import SERVER_RECV, SERVER_SEND
 from zipkin_tpu_torch.models.span import (Annotation, BinaryAnnotation,
@@ -169,3 +172,150 @@ class Tracer:
         )
         self.transport([span])
         return span
+
+
+class ZipkinWSGIMiddleware:
+    """WSGI middleware: a server span per request (RackHandler role)."""
+
+    def __init__(self, app, tracer: Tracer):
+        self.app = app
+        self.tracer = tracer
+
+    def __call__(self, environ, start_response):
+        headers = {
+            k[5:].replace("_", "-"): v
+            for k, v in environ.items() if k.startswith("HTTP_")
+        }
+        b3 = B3Headers.parse(headers)
+        # Resolve ids and the sampling decision UP FRONT so the
+        # response can echo X-B3-TraceId/-SpanId — the signal the
+        # browser-extension role watches to link the current page's
+        # trace into the UI (reference: zipkin-browser-extension's
+        # request observer; ours reads these echoed headers in a
+        # devtools panel, zipkin_tpu_torch/web/extension/). The recorded
+        # span reuses exactly the echoed ids; unsampled requests echo
+        # only X-B3-Sampled: 0 (see Tracer.resolve).
+        resolved = self.tracer.resolve(b3)
+        start_us = int(time.time() * 1e6)
+        path = environ.get("PATH_INFO", "/")
+        method = environ.get("REQUEST_METHOD", "GET")
+        status_holder: List[str] = []
+
+        def capture_start_response(status, resp_headers, exc_info=None):
+            status_holder.append(status)
+            # Filter any pre-existing X-B3-* response headers (case-
+            # insensitively) before appending ours: a nested tracing
+            # middleware (or the wrapped app itself) may already have
+            # emitted them, and a response carrying two conflicting
+            # X-B3-TraceId values makes the devtools panel link
+            # whichever it reads first (ADVICE r5). The OUTERMOST
+            # middleware resolved the request's ids — its echo wins.
+            resp_headers = [
+                (k, v) for k, v in resp_headers
+                if not k.lower().startswith("x-b3-")
+            ] + list(resolved.emit().items())
+            return start_response(status, resp_headers, exc_info)
+
+        try:
+            return self.app(environ, capture_start_response)
+        finally:
+            self.tracer.server_span(
+                f"{method.lower()} {path}",
+                resolved,
+                start_us=start_us,
+                end_us=int(time.time() * 1e6),
+                tags={
+                    "http.uri": path,
+                    "http.method": method,
+                    "http.status": (status_holder[0].split()[0]
+                                    if status_holder else "?"),
+                },
+            )
+
+
+def http_transport(base_url: str) -> Callable[[Sequence[Span]], None]:
+    """Transport posting JSON spans to a collector's /api/spans door."""
+    from zipkin_tpu_torch.ingest.receiver import span_to_json
+
+    def send(spans: Sequence[Span]) -> None:
+        body = json.dumps([span_to_json(s) for s in spans]).encode()
+        req = urllib.request.Request(
+            base_url.rstrip("/") + "/api/spans", data=body, method="POST",
+            headers={"Content-Type": "application/json"},
+        )
+        urllib.request.urlopen(req, timeout=10).read()
+
+    return send
+
+
+class QueryClient:
+    """Typed client for the HTTP query API (zipkin-query gem role)."""
+
+    def __init__(self, base_url: str, timeout: float = 10.0):
+        self.base_url = base_url.rstrip("/")
+        self.timeout = timeout
+
+    def _get(self, path: str):
+        with urllib.request.urlopen(
+            self.base_url + path, timeout=self.timeout
+        ) as r:
+            return json.loads(r.read())
+
+    def services(self) -> List[str]:
+        return self._get("/api/services")
+
+    def span_names(self, service: str) -> List[str]:
+        return self._get(f"/api/spans?serviceName={service}")
+
+    def query(self, service: str, **params) -> dict:
+        qs = "&".join(
+            [f"serviceName={service}"]
+            + [f"{k}={v}" for k, v in params.items()]
+        )
+        return self._get(f"/api/query?{qs}")
+
+    def trace(self, trace_id) -> List[dict]:
+        """``trace_id`` as int (formatted as unsigned hex, the URL
+        convention) or an already-hex string from a query response."""
+        if isinstance(trace_id, int):
+            trace_id = f"{trace_id & (2**64 - 1):x}"
+        return self._get(f"/api/trace/{trace_id}")
+
+    def dependencies(self) -> dict:
+        return self._get("/api/dependencies")
+
+    def traces_exist(self, trace_ids) -> List[str]:
+        """tracesExist over the HTTP surface: returns the unsigned-hex
+        ids (the query-response form) that have any stored span."""
+        ids = ",".join(
+            f"{t & (2**64 - 1):x}" if isinstance(t, int) else str(t)
+            for t in trace_ids
+        )
+        return self._get(f"/api/traces_exist?traceIds={ids}")["exist"]
+
+    def span_durations(self, service: str, span_name: str,
+                       time_stamp: Optional[int] = None) -> Dict:
+        """getSpanDurations: {service name: [duration µs, ...]} for
+        spans named ``span_name`` in traces the index matches."""
+        qs = f"serviceName={service}&spanName={span_name}"
+        if time_stamp is not None:
+            qs += f"&timeStamp={time_stamp}"
+        return self._get(f"/api/span_durations?{qs}")["durations"]
+
+    def service_names_to_trace_ids(self, service: str,
+                                   span_name: Optional[str] = None,
+                                   time_stamp: Optional[int] = None
+                                   ) -> Dict:
+        """getServiceNamesToTraceIds: {participating service:
+        [unsigned-hex trace ids]}."""
+        qs = f"serviceName={service}"
+        if span_name is not None:
+            qs += f"&spanName={span_name}"
+        if time_stamp is not None:
+            qs += f"&timeStamp={time_stamp}"
+        return self._get(
+            f"/api/service_names_to_trace_ids?{qs}")["serviceNames"]
+
+    def data_ttl(self) -> int:
+        """getDataTimeToLive: the storage tier's retention (seconds)."""
+        return self._get("/api/data_ttl")["dataTimeToLive"]

@@ -1,11 +1,11 @@
 """Metric types + registry (the stats-receiver role, host side).
 
-The port's copy of ``zipkin_tpu/obs/registry.py`` without the
-Prometheus text exposition and the callback family (they come with
-the daemon slice). Everything here is plain python/numpy and
-thread-safe: these objects are bumped from the store's write path and
-the ingest pipeline's threads concurrently. The latency sketch reuses
-the repo's sketch math:
+The port's copy of ``zipkin_tpu/obs/registry.py``. Everything here is
+plain python/numpy and thread-safe: these objects are bumped from the
+store's write path, the ingest pipeline's threads and the API's
+handler threads concurrently. ``Registry.render_text`` is the
+Prometheus text exposition the API serves at ``GET /metrics``. The
+latency sketch reuses the repo's sketch math:
 
 - bucketing is the DDSketch log-histogram of ``ops.quantile`` (same
   gamma formula, same geometric-midpoint quantile read via
@@ -53,6 +53,10 @@ def escape_label_value(v: str) -> str:
     return (
         str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
     )
+
+
+def escape_help(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace("\n", "\\n")
 
 
 def _label_str(labels: Sequence[Tuple[str, str]]) -> str:
@@ -196,6 +200,30 @@ class Gauge(Metric):
         yield "", (), self.value
 
 
+class CallbackFamily(Metric):
+    """A labeled gauge family whose samples come from one callback
+    returning ``{label_value: number}`` — the adapter for existing
+    snapshot hooks like ``SpanStore.counters()``, which already
+    aggregate on their own locks and would be awkward to re-plumb as
+    individual gauges."""
+
+    prom_type = "gauge"
+
+    def __init__(self, name: str, help: str, label: str,
+                 fn: Callable[[], Dict[str, float]]):
+        super().__init__(name, help, (label,))
+        self._fn = fn
+
+    def samples(self):
+        try:
+            values = self._fn()
+        except Exception:  # graftlint: disable=swallowed-exception
+            return  # absent family = the broken-callback signal
+        label = self.labelnames[0]
+        for k in sorted(values):
+            yield "", ((label, str(k)),), values[k]
+
+
 class LatencySketch(Metric):
     """Mergeable latency/size distribution: log-histogram buckets
     (ops.quantile math) + streaming central moments (the Moments
@@ -329,6 +357,18 @@ class Registry:
             return [self._metrics[k] for k in sorted(self._metrics)]
 
     # -- views ----------------------------------------------------------
+
+    def render_text(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        lines: List[str] = []
+        for m in self.collect():
+            lines.append(f"# HELP {m.name} {escape_help(m.help)}")
+            lines.append(f"# TYPE {m.name} {m.prom_type}")
+            for suffix, labels, value in m.samples():
+                lines.append(
+                    f"{m.name}{suffix}{_label_str(labels)} {_fmt(value)}"
+                )
+        return "\n".join(lines) + "\n"
 
     def as_dict(self) -> Dict[str, float]:
         """Flat snapshot: sample key → value (summary quantiles keyed

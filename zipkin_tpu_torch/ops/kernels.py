@@ -46,6 +46,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "zipkin_tpu_torch"
 SOURCES = ("flat_histogram", "arena_claim_scatter", "paged_page_gather")
+INGEST_SOURCES = SOURCES[:2]
+QUERY_SOURCES = SOURCES[2:]
 KERNELS = ("flat_histogram", "arena_claim", "arena_write",
            "paged_page_gather")
 
@@ -70,6 +72,14 @@ _ARGTYPES = {
     ],
 }
 _RESTYPES = {"zt_arena_claim_scratch": ctypes.c_longlong}
+
+
+def compile_count(names) -> int:
+    """Kernel libraries of ``names`` this process has loaded (built, or
+    found fresh in ``BUILD_DIR``): each source loads once, at its first
+    use, so the count stays flat after warm-up. The store reports it as
+    the reference's jit-compile counters (``TorchSpanStore.counters``)."""
+    return sum(1 for n in names if n in _LIBS)
 
 
 def reset_launches() -> None:

@@ -284,11 +284,17 @@ COUNTER_NAMES = ("spans_seen", "anns_seen", "banns_seen", "batches",
 class StoreState:
     """``config`` plus ``leaves``: a dict of tensors keyed by the JAX
     StoreState field names (``counters`` a nested dict). Leaves read as
-    attributes (``state.trace_id``)."""
+    attributes (``state.trace_id``). ``paths`` records which rank and
+    arena-write implementations the steps on this state took
+    ({"rank": {"argsort"|"counting"}, "scatter": {"pallas"|"xla"}},
+    "pallas" when ``use_pallas`` sends the step's scatter-adds and
+    arena write through the K1 and K2 wrappers); it is host state, not
+    a leaf."""
 
     def __init__(self, config: StoreConfig, leaves: Dict[str, object]):
         self.config = config
         self.leaves = leaves
+        self.paths: Dict[str, set] = {}
 
     def __getattr__(self, name):
         try:
@@ -1319,6 +1325,9 @@ def ingest_step(state: StoreState, b: DeviceBatch) -> StoreState:
         cat = [torch.cat(parts) for parts in zip(*(p for _, p in segments))]
         rank_sel = rank_mode(c.rank_path, cat[0].shape[0], c.idx_layout[1],
                              wm_shift)
+        state.paths.setdefault("rank", set()).add(rank_sel[0])
+        state.paths.setdefault("scatter", set()).add(
+            "pallas" if c.use_pallas else "xla")
         n_key_drops = _index_write(
             lv["cand_idx"], lv["cand_pos"], lv["cand_wm"], lv["key_tab"],
             lv["key_wm"], lv["ann_poison"], *cat,

@@ -63,6 +63,7 @@ from zipkin_tpu_torch.models.span import Span
 from zipkin_tpu_torch.aggregate import windows as win
 from zipkin_tpu_torch.aggregate.job import dependencies_from_bank
 from zipkin_tpu_torch.ops import hll
+from zipkin_tpu_torch.ops import kernels as K
 from zipkin_tpu_torch.ops import quantile as Q
 from zipkin_tpu_torch.store import device as dev
 from zipkin_tpu_torch.store.analytics import WindowedAnalytics
@@ -1558,13 +1559,30 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         out["banns_truncated"] = float(self.banns_truncated)
         out["index_hits"] = float(self.index_hits)
         out["index_scan_fallbacks"] = float(self.index_fallbacks)
-        out["batch_spans_limit"] = float(self._max_chunk_spans())
+        # The reference's jit-compile counters: here the CUDA kernel
+        # libraries loaded, the ingest step's (K1, K2) and the read
+        # path's (K3). Each loads once, so both stay flat after the
+        # first launch, as the reference's do in a warmed steady state.
+        out["jit_compiles"] = float(K.compile_count(K.INGEST_SOURCES))
+        out["query_jit_compiles"] = float(K.compile_count(K.QUERY_SOURCES))
         p = self._pipeline
         if p is not None:
             out["pipeline_prefetch_depth"] = float(p.queued())
         s = self._sealer
         if s is not None:
             out["capture_backlog"] = float(s.queued())
+        # Which rank and arena-write paths the steps took (the state's
+        # record): rank_path_counting is 1.0 once a step's rank_mode
+        # chose the counting ranks; scatter_path_pallas is 1.0 once a
+        # step sent its scatter-adds and arena write through the K1 and
+        # K2 wrappers (``use_pallas``; the kernels themselves on a card,
+        # their plain twins on the CPU).
+        paths = self.state.paths
+        out["rank_path_counting"] = float(
+            "counting" in paths.get("rank", ()))
+        out["scatter_path_pallas"] = float(
+            "pallas" in paths.get("scatter", ()))
+        out["batch_spans_limit"] = float(self._max_chunk_spans())
         if self._planner is not None:
             pstats = self._planner.stats()
             out["pages_active"] = float(pstats["pages_active"])
