@@ -154,7 +154,28 @@ nvcc per source, started together), then
    forms; ``POST /debug/profile`` must answer 200 with CUDA kernels in
    its trace (reads sent meanwhile) and a second capture 409; and ten
    ``/api/combo`` reads through a server over the paged 2^14 store must
-   launch K3 and equal the CPU twin's server.
+   launch K3 and equal the CPU twin's server;
+15. fleet observability on the daemon's default store (``fleet_path``,
+   full width, the window on, a WAL with the daemon's defaults): a
+   ``LineageTracker`` at ``sample_every=1`` through four journaled
+   launches, its flushes landing through ``store.apply`` from the
+   log's group-commit thread; every sampled record's trace (``ingest
+   unit`` with ``wal append`` and ``wal fsync`` under it, tagged with
+   the record's sequence) must read back from the card store, the stage
+   sketch must have seen each stage, and K1 and both K2 halves must
+   launch once a step, the flushes' steps included (the ``fleet`` entry
+   of ``launches_by_path``). Then ``ApiServer(QueryService(store),
+   collector, fleet=FleetObs(...))`` with the daemon's watchdog probes
+   on a socket: ``/api/health`` 200, 503 with the reason while the
+   log's fsync error is parked, 200 again, ``/debug/events`` exactly
+   those two transitions, ``/metrics?fleet=1`` the registry's own
+   values labelled ``role="primary"``, ``/api/fleet`` one process and
+   the merged stage sketch. Last, lineage's cost at the production
+   cadence (1 in 64): two stores with logs at fsync=off, one with a
+   tracker, the same launches in interleaved rounds (three each, the
+   minimum of each); it fails if a kernel library loads during the
+   rounds or K1/K2 launches a step differ, and prints the ratio beside
+   the reference's bound, 1.05, without gating on it.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -252,6 +273,7 @@ class Scale:
             self.prep_workers = 2
             self.query_log2, self.query_launches = 13, 2
             self.query_requests, self.query_pool = 200, 40
+            self.fleet_round = 2
         else:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
@@ -287,6 +309,12 @@ class Scale:
             # ~2,000 requests drawn from a pool of 160 (repeats).
             self.query_log2, self.query_launches = 22, 12
             self.query_requests, self.query_pool = 2000, 160
+            # The fleet phase's overhead rounds: 3 journaled launches a
+            # round (~0.45 s each), three rounds a store after a warm one.
+            self.fleet_round = 3
+        # The fleet phase: 4 journaled launches traced unit by unit,
+        # then 3 timed rounds a store, lineage off and on in turn.
+        self.fleet_launches, self.fleet_rounds = 4, 3
         # Four launches of the stream through the Scribe front end.
         self.collector_launches = 4
         # The query phase: the window store loaded with part of a lap,
@@ -1475,6 +1503,331 @@ def durability_path(torch, K, dev, scale, device):
         }
         log("durability path result: " + json.dumps(result))
         del store, rec
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _lineage_checks(store, wal, reg, what):
+    """Every sampled record of ``wal`` (its ``b3`` stamp) must read back
+    from ``store`` as one trace: the ``ingest unit`` root with the
+    stamp's span id and no parent, ``wal append`` and ``wal fsync``
+    children parented on it, each tagged with the record's sequence;
+    the stage sketch must have seen append and fsync once a unit."""
+    from zipkin_tpu_torch.wal.record import unit_meta
+
+    sampled = []
+    records = 0
+    for seq, payload in wal.replay(0):
+        records += 1
+        meta = unit_meta(payload)
+        if "ts" not in meta:
+            fail(f"{what}: record {seq} carries no lineage timestamp")
+        if "b3" in meta:
+            sampled.append((seq, int(meta["b3"][0]), int(meta["b3"][1])))
+    if not sampled:
+        fail(f"{what}: no record was sampled")
+    want = {"ingest unit", "wal append", "wal fsync"}
+    for seq, tid, sid in sampled:
+        trace = (store.get_spans_by_trace_ids([tid]) or [[]])[0]
+        names = sorted(s.name for s in trace)
+        if sorted(want) != names:
+            fail(f"{what}: the trace of record {seq} holds {names}")
+        for s in trace:
+            tags = {b.key: b.value for b in s.binary_annotations}
+            if s.trace_id != tid or tags.get("wal.seq") != str(seq):
+                fail(f"{what}: span {s.name} of record {seq} has trace "
+                     f"{s.trace_id} and tags {tags}")
+            if s.name == "ingest unit":
+                if s.id != sid or s.parent_id is not None:
+                    fail(f"{what}: the root of record {seq} is {s.id} "
+                         f"under {s.parent_id}, not {sid} at the top")
+            elif s.parent_id != sid:
+                fail(f"{what}: {s.name} of record {seq} has parent "
+                     f"{s.parent_id}, not the root {sid}")
+    stages = {}
+    for suffix, labels, value in reg.get(
+            "zipkin_lineage_stage_seconds").samples():
+        if suffix == "_count":
+            stages[dict(labels)["stage"]] = int(value)
+    if (stages.get("append", 0) < len(sampled)
+            or stages.get("fsync", 0) < len(sampled)):
+        fail(f"{what}: the stage sketch saw {stages} for {len(sampled)} "
+             f"sampled units")
+    return {"records": records, "sampled_units": len(sampled),
+            "stage_counts": stages}
+
+
+def _federation_values(text, role=None):
+    """(name, labels, value) of every sample line of a Prometheus text;
+    with ``role``, only the lines labelled with it, the label dropped."""
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        name, _, labels = head.partition("{")
+        labels = labels.rstrip("}")
+        if role is not None:
+            tag = f'role="{role}"'
+            if not labels.startswith(tag):
+                continue
+            labels = labels[len(tag):].lstrip(",")
+        out.append((name, labels, value))
+    return sorted(out)
+
+
+def fleet_path(torch, K, dev, scale, device):
+    """Fleet observability on the daemon's default store (full width,
+    the window on, a WAL with the daemon's defaults): (a) lineage at
+    ``sample_every=1`` through journaled launches, each sampled unit's
+    trace read back from the card store with every parent id right,
+    the flushes landing through ``store.apply`` (K1 and both K2 halves
+    once a step, the flushes' steps included); (c) the watchdog behind
+    ``ApiServer(QueryService(store), collector, fleet=FleetObs(...))``
+    on a socket: ready, 503 with the reason while the log's fsync is
+    parked, ready again, and exactly those two transitions in
+    ``/debug/events``; (d) ``/metrics?fleet=1`` against the registry's
+    own scrape, and ``/api/fleet``; then (b) the cost of lineage at the
+    production cadence (1 in 64): two stores with logs at fsync=off,
+    one with a tracker, the same launches in interleaved rounds, no
+    kernel library loaded and K1/K2 launches a step equal on and off
+    (the ratio is reported, not gated: the host is shared)."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.api import ApiServer
+    from zipkin_tpu_torch.ingest import Collector
+    from zipkin_tpu_torch.obs import fleet as fobs
+    from zipkin_tpu_torch.query import QueryService
+    from zipkin_tpu_torch.sampler import Sampler
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+    from zipkin_tpu_torch.wal import WriteAheadLog
+    from zipkin_tpu_torch.wal.record import unit_meta
+
+    cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
+    free_card(torch, device)
+    work = tempfile.mkdtemp(prefix="zipkin-fleet-")
+    result = {}
+    try:
+        # -- (a) lineage round trip at sample_every=1 ---------------------
+        t = time.perf_counter()
+        reg = obs.Registry()
+        store = TorchSpanStore(cfg, device=device.type, registry=reg)
+        gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
+                               n_span_names=scale.names, topology=True,
+                               seed=23)
+        wal = WriteAheadLog(os.path.join(work, "wal"), fsync="interval",
+                            interval_s=0.05, segment_bytes=64 << 20,
+                            registry=reg)
+        store.attach_wal(wal)
+        flush_threads = []
+
+        def sink(spans):
+            flush_threads.append((threading.current_thread().name,
+                                  len(spans)))
+            store.apply(spans)
+
+        tracker = fobs.LineageTracker(sink, registry=reg, sample_every=1)
+        # Flush every two units' spans, so the group-commit thread's
+        # on_durable flushes into the store while launches go on.
+        tracker.FLUSH_AT = 6
+        store.attach_lineage(tracker)
+        # Seen durable callbacks, to know when the group-commit thread's
+        # last one (and the flush it ran) has returned.
+        done = []
+
+        def observed(seq):
+            tracker.on_durable(seq)
+            done.append(seq)
+
+        wal.set_on_durable(observed)
+        steps0 = store.counter_block()["batches"]
+        K.reset_launches()
+        for i in range(scale.fleet_launches):
+            batch, _, ix = gen.next_batch(
+                scale.batch_traces, base_ts=WIN_BASE_US + i * WIN_STEP_US)
+            store.write_batch(batch, ix)
+        wal.sync()
+        tracker.flush()
+        wal.sync()
+        deadline = time.monotonic() + 60
+        while not (done and done[-1] >= wal.last_seq):
+            if time.monotonic() > deadline:
+                fail(f"fleet path: durable callbacks stuck at {done[-1:]}"
+                     f" with {wal.last_seq} records")
+            time.sleep(0.01)
+        sync(torch, device)
+        launches = dict(K.LAUNCHES)
+        steps = store.counter_block()["batches"] - steps0
+        check_launches(launches, ("flat_histogram", "arena_claim",
+                                  "arena_write"), device, "fleet", steps)
+        if device.type == "cuda" and not (
+                launches["arena_claim"] == launches["arena_write"]
+                == steps):
+            fail(f"fleet path: arena halves {launches} in {steps} steps")
+        if steps <= scale.fleet_launches:
+            fail(f"fleet path: {steps} steps for {scale.fleet_launches} "
+                 f"launches: no lineage flush reached the store")
+        lin = _lineage_checks(store, wal, reg, "fleet path")
+        result["lineage"] = {
+            **lin, "launches": scale.fleet_launches, "ingest_steps": steps,
+            "flushes": flush_threads,
+            "wal_records": wal.last_seq,
+            "s": time.perf_counter() - t}
+        result["kernel_launches"] = launches
+        result["ingest_steps"] = steps
+
+        # -- (c) the watchdog over a socket; (d) federation ---------------
+        t = time.perf_counter()
+        recorder = fobs.FlightRecorder()
+        watchdog = fobs.Watchdog(recorder=recorder, registry=reg)
+        watchdog.add_probe("pipeline", fobs.pipeline_stall_probe(store))
+        watchdog.add_probe("sealer", fobs.sealer_backlog_probe(store))
+        watchdog.add_probe("wal_fsync", fobs.fsync_parked_probe(wal))
+        fleet = fobs.FleetObs(role="primary", registry=reg,
+                              tracker=tracker, watchdog=watchdog,
+                              recorder=recorder)
+        collector = Collector(store, sampler=Sampler(1.0), max_queue=500,
+                              concurrency=10, self_trace=True,
+                              registry=reg)
+        query = QueryService(store)
+        api = ApiServer(query, collector, registry=obs.Registry(),
+                        fleet=fleet)
+        # No span may land while the fsync error is parked: a group
+        # commit with work to do would clear it.
+        api.tracer.sample_rate = 0.0
+        server, thread, base = serve_api(api)
+        try:
+            health = []
+            for parked in (None, RuntimeError("injected fsync stall"),
+                           None):
+                with wal._cond:
+                    wal._sync_error = parked
+                status, _, body = http_call(base + "/api/health")
+                health.append((status, json.loads(body)))
+            want = [200, 503, 200]
+            if [s for s, _ in health] != want:
+                fail(f"fleet path: /api/health answered "
+                     f"{[s for s, _ in health]}, not {want}: {health}")
+            reasons = health[1][1]["reasons"]
+            if (health[1][1]["ready"] or len(reasons) != 1
+                    or reasons[0]["probe"] != "wal_fsync"
+                    or reasons[0]["reason"]
+                    != "wal fsync parked: injected fsync stall"):
+                fail(f"fleet path: the parked health was {health[1]}")
+            status, _, body = http_call(base + "/debug/events")
+            events = [(e["kind"], e["fields"].get("probe"))
+                      for e in json.loads(body)["events"]]
+            if status != 200 or events != [("watchdog_trip", "wal_fsync"),
+                                           ("watchdog_clear", "wal_fsync")]:
+                fail(f"fleet path: /debug/events answered {status} "
+                     f"{events}")
+            status, _, body = http_call(base + "/metrics?fleet=1")
+            own = reg.render_text()
+            fed = body.decode("utf-8")
+            if status != 200 or (_federation_values(fed, "primary")
+                                 != _federation_values(own)):
+                fail("fleet path: /metrics?fleet=1 differs from the "
+                     "registry's own scrape")
+            status, _, body = http_call(base + "/api/fleet")
+            doc = json.loads(body)
+            merged = doc.get("merged", {}).get(
+                "zipkin_lineage_stage_seconds")
+            stage_n = sum(lin["stage_counts"].values())
+            if (status != 200 or doc["processes"] != [{"role": "primary"}]
+                    or merged is None or merged["count"] != stage_n
+                    or not doc["health"]["ready"]):
+                fail(f"fleet path: /api/fleet answered {status} {doc}")
+        finally:
+            with wal._cond:
+                wal._sync_error = None
+            stop_api(server, thread)
+            collector.close()
+            query.close()
+        result["watchdog"] = {
+            "health_status": [s for s, _ in health],
+            "parked_reason": reasons[0]["reason"], "events": events,
+            "federated_samples": len(_federation_values(own)),
+            "fleet_merged_count": merged["count"],
+            "s": time.perf_counter() - t}
+        wal.close()
+        del store, tracker, api, fleet
+        free_card(torch, device)
+
+        # -- (b) the cost of lineage at 1 in 64 ---------------------------
+        t = time.perf_counter()
+        stores, drives = {}, {}
+        for mode in ("off", "on"):
+            s = TorchSpanStore(cfg, device=device.type,
+                               registry=obs.Registry())
+            w = WriteAheadLog(os.path.join(work, f"wal-{mode}"),
+                              fsync="off", segment_bytes=64 << 20,
+                              registry=obs.Registry())
+            s.attach_wal(w)
+            if mode == "on":
+                s.attach_lineage(fobs.LineageTracker(
+                    s.apply, registry=obs.Registry()))
+            g = ColumnarTraceGen(s.dicts, n_services=scale.services,
+                                 n_span_names=scale.names, topology=True,
+                                 seed=29)
+            drives[mode] = [[g.next_batch(scale.batch_traces,
+                                          base_ts=WIN_BASE_US
+                                          + (r * 8 + i) * WIN_STEP_US)
+                             for i in range(scale.fleet_round)]
+                            for r in range(scale.fleet_rounds + 1)]
+            stores[mode] = (s, w)
+
+        def drive(mode, r):
+            s = stores[mode][0]
+            steps0 = s.counter_block()["batches"]
+            launched = dict(K.LAUNCHES)
+            t0 = time.perf_counter()
+            for batch, _, ix in drives[mode][r]:
+                s.write_batch(batch, ix)
+            sync(torch, device)
+            took = time.perf_counter() - t0
+            n = s.counter_block()["batches"] - steps0
+            per = {k: (K.LAUNCHES[k] - launched[k]) / n for k in (
+                "flat_histogram", "arena_claim", "arena_write")}
+            return took, per
+
+        drive("off", 0)
+        drive("on", 0)  # warm: every pad bucket both stores will hit
+        libs0 = K.compile_count(K.SOURCES)
+        times = {"off": [], "on": []}
+        per_step = {"off": [], "on": []}
+        for r in range(1, scale.fleet_rounds + 1):
+            for mode in ("off", "on"):
+                took, per = drive(mode, r)
+                times[mode].append(took)
+                per_step[mode].append(per)
+        libs = K.compile_count(K.SOURCES) - libs0
+        if libs:
+            fail(f"fleet path: {libs} kernel libraries loaded during the "
+                 f"timed rounds")
+        if per_step["on"] != per_step["off"]:
+            fail(f"fleet path: launches a step with lineage "
+                 f"{per_step['on']} vs without {per_step['off']}")
+        on_store = stores["on"][0]
+        t_on, t_off = min(times["on"]), min(times["off"])
+        records = [unit_meta(p) for _, p in stores["on"][1].replay(0)]
+        result["overhead"] = {
+            "overhead_ratio": t_on / t_off,
+            "reference_bound": 1.05,
+            "lineage_on_s": t_on, "lineage_off_s": t_off,
+            "rounds_on_s": times["on"], "rounds_off_s": times["off"],
+            "launches_per_round": scale.fleet_round,
+            "spans_per_launch": scale.batch_traces * 7,
+            "launches_per_step": per_step["on"][0],
+            "kernel_libraries_loaded": libs,
+            "sampled_units": sum("b3" in m for m in records),
+            "stamped_records": sum("ts" in m for m in records),
+            "tracker_pending": on_store.lineage.pending(),
+            "s": time.perf_counter() - t}
+        for s, w in stores.values():
+            w.close()
+        del stores, on_store
+        log("fleet path result: " + json.dumps(result))
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4430,6 +4783,7 @@ def main() -> int:
           True)
     durable = phase("durability_path", durability_path, torch, K, dev,
                     scale, device)
+    fleet = phase("fleet_path", fleet_path, torch, K, dev, scale, device)
     dpaged = phase("durability_paged", durability_paged, torch, K, dev,
                    scale, device)
     phase("crash_kill_points", crash_kill_points, torch, device)
@@ -4446,7 +4800,8 @@ def main() -> int:
                                    for k in cpaged["kernel_launches"]},
                "collector": coll["kernel_launches"],
                "query": query["kernel_launches"],
-               "http": query["http"]["kernel_launches"]}
+               "http": query["http"]["kernel_launches"],
+               "fleet": fleet["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -4457,7 +4812,8 @@ def main() -> int:
                      "cold_tier_paged": cpaged["ingest_steps"],
                      "collector": coll["ingest_steps"],
                      "query": query["ingest_steps"],
-                     "http": query["http"]["ingest_steps"]}
+                     "http": query["http"]["ingest_steps"],
+                     "fleet": fleet["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",

@@ -887,3 +887,59 @@ def test_cuda_api_server_matches_cpu(cuda):
             col.close()
             api.query.close()
     assert answers[0] == answers[1] and all(answers[0])
+
+
+# -- fleet observability on the card ----------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_lineage_matches_cpu_twin(cuda, tmp_path):
+    """Lineage on a card store (WAL fsync=off, every unit sampled,
+    pinned clock, seeded ids) against its CPU twin: the same stamped
+    log byte for byte, equal states and mirrors, the lineage traces read
+    back alike; K1 and both K2 halves once a step, the flushes
+    included."""
+    import random
+
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.obs.fleet import LineageTracker
+    from zipkin_tpu_torch.wal import WriteAheadLog
+
+    applies = _window_applies(n_applies=4)
+    out = {}
+    for device in ("cpu", "cuda"):
+        store = _window_store(device=device, registry=obs.Registry())
+        wal = WriteAheadLog(str(tmp_path / device), fsync="off",
+                            registry=obs.Registry())
+        now = [(1 << 50) / 1e6]
+        tracker = LineageTracker(store.apply, registry=obs.Registry(),
+                                 sample_every=1, clock=lambda: now[0])
+        tracker._rng = random.Random(3)
+        tracker.FLUSH_AT = 4
+        store.attach_wal(wal)
+        store.attach_lineage(tracker)
+        K.reset_launches()
+        for spans in applies:
+            now[0] += 0.5
+            store.apply(spans)
+        wal.sync()
+        tracker.flush()
+        wal.sync()
+        steps = store.counter_block()["batches"]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert steps > len(applies)
+            assert {k: K.LAUNCHES[k] for k in (
+                "flat_histogram", "arena_claim", "arena_write")} == {
+                "flat_histogram": steps, "arena_claim": steps,
+                "arena_write": steps}
+        ids = store.get_trace_ids_by_name("zipkin-tpu", None, 1 << 62, 50)
+        traces = [store.get_spans_by_trace_ids([i.trace_id])[0]
+                  for i in ids]
+        wal.close()
+        out[device] = (store, traces, [
+            f.read_bytes() for f in sorted((tmp_path / device).iterdir())])
+    cpu, card = out["cpu"], out["cuda"]
+    assert len(card[1]) >= len(applies) and card[1] == cpu[1]
+    assert card[2] == cpu[2]
+    _assert_same_store(cpu[0], card[0])

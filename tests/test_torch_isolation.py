@@ -109,3 +109,25 @@ def test_native_codec_builds_from_the_port_source_into_its_build_dir():
     from zipkin_tpu import native as ref_native
 
     assert Path(ref_native._SO).resolve() != so
+
+
+def test_fleet_imports_without_jax():
+    """Fleet observability and the lineage hook import with JAX and the
+    JAX package blocked, and the store exposes ``attach_lineage``."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['zipkin_tpu'] = None; "
+            "from zipkin_tpu_torch.obs import fleet; "
+            "from zipkin_tpu_torch.obs import FleetObs, LineageTracker, "
+            "Watchdog, FlightRecorder, FollowerLineage; "
+            "from zipkin_tpu_torch.store.torch_store import TorchSpanStore; "
+            "from zipkin_tpu_torch.store.pipeline import EvictionSealer, "
+            "IngestPipeline; "
+            "assert TorchSpanStore.attach_lineage; "
+            "assert EvictionSealer.at_capacity and "
+            "IngestPipeline.progress_age_s; "
+            "assert fleet.fsync_parked_probe and fleet.sealer_backlog_probe")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)

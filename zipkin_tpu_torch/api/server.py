@@ -11,11 +11,14 @@ TTL).
 The server never picks a device: it serves whatever store its
 ``QueryService`` and ``Collector`` wrap, and a store on the card stays
 there (spans that come in through ``POST /scribe`` and ``POST
-/api/spans`` reach its ingest step, trace reads its gathers). Fleet
-observability is not ported yet, so ``fleet`` stays None and
-``/api/health``, ``/api/fleet``, ``/debug/events`` and
-``/metrics?fleet=1`` answer as a single process; ``/api/replication``
-answers ``{"role": "none"}`` until replication is ported.
+/api/spans`` reach its ingest step, trace reads its gathers). The fleet
+routes are live when a ``FleetObs`` (``obs/fleet.py``) is passed as
+``fleet``: ``/api/health`` answers the watchdog's readiness (503 while a
+probe fails, with its reasons), ``/api/fleet`` the roles and merged
+lineage sketches, ``/debug/events`` the flight recorder, and
+``/metrics?fleet=1`` the federated scrape; with ``fleet=None`` each
+answers as a single process. ``/api/replication`` answers ``{"role":
+"none"}`` until replication is ported.
 """
 
 from __future__ import annotations

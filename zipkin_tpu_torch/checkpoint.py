@@ -97,18 +97,22 @@ def _host_clocks(store) -> dict:
     them in the same ``_state_lock`` hold as the step, so the pair is
     exact). The capture clocks are ``_cap_lock``'s, which is taken
     BEFORE ``_state_lock`` (a pull holds it while it waits for the
-    state), so they are read here without it: a pull cannot complete,
-    and so cannot move them, while the gather holds the state lock."""
+    state), so they are read here without it: taking ``_cap_lock``
+    under the gather's state lock would invert the _cap_lock(30) ->
+    _state_lock(40) order, a real deadlock with a pull waiting for the
+    state. A pull cannot complete, and so cannot move them, while the
+    gather holds the state lock; int reads cannot tear. The sealed
+    frontier's lock is a leaf, so it is read under it."""
     return {
         "wp": int(store._wp),
         "awp": int(store._awp),
         "bwp": int(store._bwp),
         "archived": int(store._archived),
         "batches_since_sweep": int(store._batches_since_sweep),
-        "cap_upto": int(store._cap_upto),
-        "cap_a": int(store._cap_a),
-        "cap_b": int(store._cap_b),
-        "sealed_upto": int(store._sealed_upto),
+        "cap_upto": int(store._cap_upto),  # graftlint: disable=guarded-by
+        "cap_a": int(store._cap_a),  # graftlint: disable=guarded-by
+        "cap_b": int(store._cap_b),  # graftlint: disable=guarded-by
+        "sealed_upto": int(store.sealed_frontier()),
         "wal_applied": int(store._wal_applied),
     }
 

@@ -96,11 +96,15 @@ class _StageBase:
     blocked producers always terminate."""
 
     def __init__(self):
-        self._cond = threading.Condition()
+        self._cond = threading.Condition()  # lock-order: 65 stage
         self._fed = 0  # guarded-by: _cond
         self._done = 0  # guarded-by: _cond
         self._error: Optional[BaseException] = None  # guarded-by: _cond
         self._closed = False  # guarded-by: _cond
+        # Monotonic time of the last forward progress (an item
+        # completing, or work arriving at an idle stage): the stall
+        # watchdog's probe reads its age (obs.fleet).
+        self._last_progress = time.monotonic()  # guarded-by: _cond
 
     @property
     def error(self) -> Optional[BaseException]:
@@ -122,12 +126,27 @@ class _StageBase:
         with self._cond:
             if self._closed:
                 raise RuntimeError("pipeline stage is stopped")
+            if self._done == self._fed:
+                # Idle to busy: the stall clock starts at arrival, not
+                # at the last completion before the idle gap.
+                self._last_progress = time.monotonic()
             self._fed += 1
 
     def _mark_done(self) -> None:
         with self._cond:
             self._done += 1
+            self._last_progress = time.monotonic()
             self._cond.notify_all()
+
+    def progress_age_s(self) -> float:
+        """Seconds since this stage last made forward progress while
+        holding queued work; 0.0 when idle. The watchdog's pipeline and
+        sealer stall signal: a large age with a non-empty queue means a
+        wedged worker, not backpressure."""
+        with self._cond:
+            if self._done >= self._fed:
+                return 0.0
+            return max(0.0, time.monotonic() - self._last_progress)
 
     def _park_error(self, exc: BaseException) -> None:
         with self._cond:
@@ -434,6 +453,12 @@ class EvictionSealer(_StageBase):
 
     def queued(self) -> int:
         return self._q.qsize()
+
+    def at_capacity(self) -> bool:
+        """True when the in-flight window queue is full: the next
+        capture submit will stall the write path (the watchdog's
+        sealer-backlog signal)."""
+        return self._q.qsize() >= self.backlog
 
 
 def fetch_mats(mats, stream=None, after=None):

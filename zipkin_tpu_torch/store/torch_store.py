@@ -50,7 +50,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -103,6 +103,10 @@ from zipkin_tpu_torch.wal.record import (
     dump_dict_deltas,
     encode_unit,
 )
+
+if TYPE_CHECKING:  # typing only; also feeds graftlint's call resolver
+    from zipkin_tpu_torch.obs.fleet import LineageTracker
+    from zipkin_tpu_torch.wal.log import WriteAheadLog
 
 _BATCH_MIN = 64
 
@@ -349,8 +353,8 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
                          if self.config.paged_enabled else None)
         # Writers serialize on _lock; _state_lock guards the in-place
         # state against a concurrent reader (both re-entrant).
-        self._lock = threading.RLock()
-        self._state_lock = threading.RLock()
+        self._lock = threading.RLock()  # lock-order: 10 encode
+        self._state_lock = threading.RLock()  # lock-order: 40 commit
         self._wp = 0
         self._archived = 0
         self._batches_since_sweep = 0
@@ -382,17 +386,23 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         self.capture_backlog = self.CAPTURE_BACKLOG
         self._sealer: Optional[EvictionSealer] = None
         self._sealed_upto = 0  # guarded-by: _seal_lock
-        self._cap_lock = threading.Lock()
-        self._seal_lock = threading.Lock()
+        self._cap_lock = threading.Lock()  # lock-order: 30 capture
+        self._seal_lock = threading.Lock()  # lock-order: 45 seal (leaf)
         # Durable write-ahead log (wal/): when attached, every planned
         # launch group is journaled (stage-1 output + dictionary delta)
         # BEFORE its commit; _wal_applied is the highest sequence whose
         # unit has committed (stamped under _state_lock with the step,
         # so a checkpoint cut reads a sequence consistent with the
         # state), _wal_marks the dictionary sizes of the last record.
-        self.wal = None
+        self.wal: Optional[WriteAheadLog] = None
         self._wal_applied = 0
         self._wal_marks = None
+        # Batch lineage tracker (obs.fleet.LineageTracker): when
+        # attached, _journal_group stamps each record's meta with a
+        # commit timestamp (+ a sampled B3 context) and reports the
+        # append, so a unit's WAL append -> fsync shows up as one
+        # self-trace in this store.
+        self.lineage: Optional[LineageTracker] = None
         self._step_seq = 0
         self._read_epoch = 0
         self._cblock_memo = None
@@ -1053,20 +1063,55 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         commit (the ack-after-append contract). Attach before live
         writes: groups committed earlier are covered only by
         checkpoints. The store does not own the log: callers close() it
-        after the store. The lineage tracker (``attach_lineage``) comes
-        with the fleet observability slice."""
+        after the store."""
         with self._lock:
             self.wal = wal
             self._wal_marks = dict_sizes(self.dicts)
+            if self.lineage is not None:
+                wal.set_on_durable(self.lineage.on_durable)
+
+    def attach_lineage(self, tracker) -> None:
+        """Stamp every journaled launch group with lineage meta
+        (obs.fleet.LineageTracker) and report its append and fsync
+        progress to the tracker. Host-side only: the stamps ride the
+        WAL record's json header, which replay ignores, so the device
+        write path is untouched. Order-independent with
+        ``attach_wal``."""
+        with self._lock:
+            self.lineage = tracker
+            if self.wal is not None:
+                self.wal.set_on_durable(tracker.on_durable)
 
     def _journal_group(self, group) -> int:
         """Append one planned launch group (+ the dictionary entries its
         encode step added) to the WAL; returns the record's sequence.
         Runs on the encoding thread under ``_lock``, so append order ==
         encode order == commit order — the property replay's
-        dictionary-delta chain depends on."""
+        dictionary-delta chain depends on.
+
+        With a lineage tracker attached the record meta gains the
+        commit timestamp (+ sampled B3 context) and the append is
+        reported. The append runs inside ``tracker.suppressed()``: with
+        fsync=off/batch the WAL's on_durable callback fires
+        synchronously in ``wal.append`` while THIS thread holds
+        ``_lock``. ``_lock`` is re-entrant, so a tracker flush there
+        would not block: it would journal (and commit) its own group
+        between this group's append and the ``_wal_marks`` update
+        below, so the nested record's delta base repeats this one's and
+        the next record's base goes back — replay would fail or
+        diverge. Suppression defers the flush to the next out-of-lock
+        flush site."""
         sizes, deltas = dump_dict_deltas(self.dicts, self._wal_marks)
-        seq = self.wal.append(encode_unit(group, self._wal_marks, deltas))
+        lin = self.lineage
+        if lin is not None:
+            extra = lin.stamp()
+            with lin.suppressed():
+                seq = self.wal.append(encode_unit(
+                    group, self._wal_marks, deltas, extra=extra))
+            lin.note_append(seq, extra)
+        else:
+            seq = self.wal.append(encode_unit(group, self._wal_marks,
+                                              deltas))
         self._wal_marks = sizes
         return seq
 
@@ -1134,11 +1179,14 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
     def close(self) -> None:
         """Stop the pipeline (committing every accepted unit, which may
         capture), then the capture sealer (sealing every pulled
-        window): nothing accepted or captured is dropped."""
+        window), then force the WAL durable: nothing accepted or
+        captured is dropped on an orderly shutdown. The WAL itself stays
+        open (its owner closes it, after any final checkpoint)."""
         self.stop_pipeline(raise_errors=False)
         s, self._sealer = self._sealer, None
         if s is not None:
             s.stop()
+        self.wal_sync()
 
     # -- TTL / pins -----------------------------------------------------
 

@@ -374,9 +374,11 @@ def verify_recovery(workdir: str, total_batches: int,
             f"cold tier differs: {cold} vs oracle {ocold}")
         for a, b in zip(cold, cold[1:]):
             assert a[1] == b[0], f"cold coverage has a hole: {cold}"
-        assert hot.sealed_frontier() == hot._cap_upto, (
+        with hot._cap_lock:
+            cap_upto = hot._cap_upto
+        assert hot.sealed_frontier() == cap_upto, (
             f"sealed frontier {hot.sealed_frontier()} short of the "
-            f"capture clock {hot._cap_upto}")
+            f"capture clock {cap_upto}")
         for b in batches[:applied]:
             tids = sorted({s.trace_id for s in b})[:3]
             assert (store.get_spans_by_trace_ids(tids)
