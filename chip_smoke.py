@@ -75,9 +75,11 @@ nvcc per source, started together), then
    keeps every acked batch, equals an uncrashed drive of the recovered
    prefix and leaves the first unapplied batch absent (tiered: the same
    cold segments, the sealed frontier at the capture clock);
-10. the daemon's ``--cold-tier --capture-backlog 4`` store at full
-   width (the window store wrapped in a ``TieredSpanStore``, its
-   ``capture_backlog`` 4): launches past one lap of the span ring, so
+10. the daemon's ``--cold-tier --capture-backlog 4`` store at the full
+   configuration's widths with a 2^20 span ring (the window store
+   wrapped in a ``TieredSpanStore``, its ``capture_backlog`` 4; the ring
+   cut from 2^22 so the sealed window is ~1 M spans, not ~4.13 M):
+   launches past one lap of the span ring, so
    the first capture window (~capacity spans) is pulled and sealed on
    the sealer thread, with known traces of services of their own early
    (evicted) and late (resident); sampled evicted and resident traces,
@@ -98,7 +100,7 @@ nvcc per source, started together), then
 13. the daemon's ingest front end at full width (``collector_path``):
    the window store behind the daemon's ``Collector`` (``Sampler(1.0)``,
    queue 500, 10 workers, self-tracing) and a ``ScribeReceiver`` fast
-   path on a ``ScribeServer``; four Scribe clients send four launches
+   path on a ``ScribeServer``; four Scribe clients send two launches
    of generated spans (made in worker processes before the clock), 100
    known traces on services of their own and one corrupt entry, in log
    calls of 2,048 entries. It fails unless the port's native codec
@@ -175,7 +177,33 @@ nvcc per source, started together), then
    tracker, the same launches in interleaved rounds (three each, the
    minimum of each); it fails if a kernel library loads during the
    rounds or K1/K2 launches a step differ, and prints the ratio beside
-   the reference's bound, 1.05, without gating on it.
+   the reference's bound, 1.05, without gating on it;
+16. the port's daemon as a process (``daemon_path``, right after
+   ``durability_path``, whose full-width snapshot and log it boots
+   from): ``python -m zipkin_tpu_torch.main.example --use-pallas
+   --cold-tier --capture-backlog 4 --wal-dir --checkpoint`` (the rest at
+   the daemon's defaults) in a session of its own, driven over its own
+   sockets. Boot A must replay exactly the log records past the
+   snapshot and answer 121 reads equal to the recovered store's through
+   an ``ApiServer`` in this process; four Scribe clients send two
+   launches of spans, 100 known traces and a corrupt entry (acked after
+   the durable append; the traffic made with the collector phase's)
+   while ``POST /debug/profile`` traces the card: its kernels must be
+   one arena claim, one arena write and one flat histogram a step (the
+   ``daemon`` entry of ``launches_by_path``); ``/metrics?format=json``
+   must show ``store.scatter_path_pallas`` 1; the known traces read back
+   equal to an oracle server's. SIGTERM must end it with exit 0 and no
+   traceback after the ordered shutdown; boot B (the saved, now tiered,
+   snapshot) replays at most the lineage tail and reads the known
+   traces back; 20 more known traces are acked and the child SIGKILLed;
+   boot C replays the tail and reads back every acked trace. Two
+   ``python -m zipkin_tpu_torch.main.tracegen`` children (the card
+   store and ``--memory-store``) must exit 0. The children run with no
+   CUDA toolkit in reach and must leave the kernel libraries this script
+   built as they were. It prints each boot's ready, restore and replay
+   seconds and health, the scribe spans/s and ack ms of the unprofiled
+   half (the profiled half beside them, as the profiler's cost), and
+   the seconds from SIGTERM to exit.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -274,6 +302,7 @@ class Scale:
             self.query_log2, self.query_launches = 13, 2
             self.query_requests, self.query_pool = 200, 40
             self.fleet_round = 2
+            self.cold_log2 = self.cap_log2
         else:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
@@ -312,17 +341,25 @@ class Scale:
             # The fleet phase's overhead rounds: 3 journaled launches a
             # round (~0.45 s each), three rounds a store after a warm one.
             self.fleet_round = 3
+            # The cold tier at a 2^20 span ring (the other widths of the
+            # full configuration kept): its sealed capture window is ~1 M
+            # spans, not the 2^22 ring's ~4.13 M, whose host seal took
+            # 154-208 s of the script's 1,200 s.
+            self.cold_log2 = 20
         # The fleet phase: 4 journaled launches traced unit by unit,
         # then 3 timed rounds a store, lineage off and on in turn.
         self.fleet_launches, self.fleet_rounds = 4, 3
-        # Four launches of the stream through the Scribe front end.
-        self.collector_launches = 4
+        # Two launches of the stream through the Scribe front end (cut
+        # from four to make room for the daemon phase), and two through
+        # the daemon's own Scribe port.
+        self.collector_launches = 2
+        self.daemon_launches = 2
         # The query phase: the window store loaded with part of a lap,
         # eight readers, four launches while they read.
         self.query_writes, self.query_readers = 4, 8
         # Launches past one lap of the span ring: the first capture
         # window (~capacity spans) is pulled and sealed, then three more.
-        self.cold_launches = -(-(1 << self.cap_log2)
+        self.cold_launches = -(-(1 << self.cold_log2)
                                // (self.batch_traces * 7)) + 3
 
 
@@ -1344,6 +1381,26 @@ def _answers(store, tids, names):
     return out
 
 
+def step_census_of(store, what):
+    """The store's step census at the default pad shapes, held to its
+    table row (``store/census.py``). On the card each wrapper call the
+    census counts is one launch of its kernel (over the empty batch's
+    invalid rows), and the launch counts move by exactly those calls."""
+    from zipkin_tpu_torch.ops import kernels as K
+    from zipkin_tpu_torch.store import census
+
+    launches = dict(K.LAUNCHES)
+    got = store.step_census()
+    on_card = store.device.type == "cuda"
+    moved = {k: K.LAUNCHES[k] - launches[k] for k in census.KERNELS}
+    if moved != {k: got[k] if on_card else 0 for k in census.KERNELS}:
+        fail(f"{what}: the census's wrapper calls {got} launched {moved}")
+    if census.gated(got) != census.row_of(store.config):
+        fail(f"{what}: step census {got}, table row "
+             f"{census.row_of(store.config)}")
+    return got
+
+
 def _compare_answers(want, got, what):
     for k, v in want.items():
         if got[k] != v:
@@ -1356,14 +1413,23 @@ def durability_path(torch, K, dev, scale, device):
     """Checkpoint + WAL at full width on the daemon's default store (the
     window on): 5 launches journaled with the daemon's log defaults,
     ``checkpoint.save``, 5 more, then ``wal.recover`` on the card into a
-    second store; the uncrashed store is the reference."""
+    second store; the uncrashed store is the reference. Returns (result,
+    the daemon phase's boot: the snapshot and log directories, the
+    records past the snapshot, and the recovered store's answers to the
+    routes the daemon is held to, taken through an ``ApiServer``)."""
     from zipkin_tpu_torch import checkpoint, obs
     from zipkin_tpu_torch.store.convert import state_to_numpy
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
     from zipkin_tpu_torch.tracegen import ColumnarTraceGen
     from zipkin_tpu_torch.wal import WriteAheadLog, recover
 
-    cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
+    # The ring holds the phase's launches and the daemon's without a lap
+    # (2^22 at full width, 2^12 in the rehearsal), so the daemon's cold
+    # tier stays empty.
+    spans = ((2 * scale.durability_launches + 1 + scale.daemon_launches)
+             * scale.batch_traces * 7)
+    cfg = full_config(dev, max(scale.cap_log2, (spans - 1).bit_length()),
+                      scale.services, **WINDOW)
     free_card(torch, device)
     work = tempfile.mkdtemp(prefix="zipkin-durability-")
     wal_dir, ckpt = os.path.join(work, "wal"), os.path.join(work, "ckpt")
@@ -1469,6 +1535,10 @@ def durability_path(torch, K, dev, scale, device):
             fail(f"durability path: the launch after recovery journaled "
                  f"as record {wal2.last_seq}, not {2 * n + 1}")
         wal2.close()
+        census_row = step_census_of(rec, "durability path")
+        boot = {"work": work, "wal_dir": wal_dir, "ckpt": ckpt,
+                "records_past_snapshot": wal2.last_seq - n,
+                "answers": boot_answers(rec, tids, names)}
         load = stats["load"]
         result = {
             "launches_before_save": n, "launches_after_save": n,
@@ -1499,13 +1569,550 @@ def durability_path(torch, K, dev, scale, device):
             "recover_peak_device_bytes": peak,
             "traces_compared": len(tids),
             "links_compared": len(want["links"]),
+            "step_census": census_row,
             "kernel_launches": launches, "ingest_steps": steps,
         }
         log("durability path result: " + json.dumps(result))
         del store, rec
-        return result
-    finally:
+        return result, boot
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
+# ---------------------------------------------------------------------------
+# The daemon as a process
+# ---------------------------------------------------------------------------
+
+DAEMON_READY = "zipkin-tpu example serving on "
+DAEMON_RESTORED = "checkpoint: restored "
+DAEMON_REPLAYED = "wal: replayed "
+SELF_SERVICE = "zipkin-tpu"
+BOOT_END_TS = str(2**62)
+DAEMON_BOOT_S = 600
+DAEMON_EXIT_S = 600
+DAEMON_LATE_KNOWN = 20
+DAEMON_PROFILE_S = 6
+DAEMON_BIND_TRIES = 3
+
+
+def boot_routes(tids, names):
+    """The routes a daemon boot is held to: 100 of the stream's traces,
+    and each service's by-name and by-annotation query."""
+    from zipkin_tpu_torch.ingest.receiver import _hex_id
+
+    step = max(1, len(tids) // 100)
+    routes = [(f"/api/trace/{_hex_id(t)}", {}) for t in tids[::step][:100]]
+    for n in names:
+        q = {"serviceName": n, "endTs": BOOT_END_TS, "limit": "20"}
+        routes += [("/api/query", q),
+                   ("/api/query", {**q,
+                                   "annotationQuery": "http.uri=/api/widgets"})]
+    return routes
+
+
+def other_links(body):
+    """The dependency links of a ``/api/dependencies`` body between
+    services other than the daemon's own (its self-trace and lineage
+    spans carry wall-clock times)."""
+    return sorted((lk for lk in body["links"]
+                   if SELF_SERVICE not in (lk["parent"], lk["child"])),
+                  key=lambda lk: (lk["parent"], lk["child"]))
+
+
+def links_close(got, want) -> bool:
+    """Equal links, their float32 moments by stated tolerance 2."""
+    from zipkin_tpu_torch.testing.crash import moments_close
+
+    key = [(lk["parent"], lk["child"]) for lk in want]
+    if [(lk["parent"], lk["child"]) for lk in got] != key:
+        return False
+    fields = ("count", "mean", "stddev", "m2", "m3", "m4")
+
+    def mat(links):
+        return [[lk["durationMoments"][f] or 0.0 for f in fields]
+                for lk in links]
+
+    return not want or moments_close(mat(want), mat(got))
+
+
+def boot_answers(store, tids, names):
+    """``boot_routes`` and the dependency links answered by ``store``
+    through an ``ApiServer`` in this process (the JSON a socket
+    carries)."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.api import ApiServer
+    from zipkin_tpu_torch.query import QueryService
+
+    service = QueryService(store, coalesce_window_s=0.0)
+    api = ApiServer(service, self_trace=False, registry=obs.Registry())
+    try:
+        routes = [(path, params, *direct_json(api, path, params))
+                  for path, params in boot_routes(tids, names)]
+        status, deps = direct_json(api, "/api/dependencies")
+        return {"routes": routes, "links": other_links(deps)}
+    finally:
+        service.close()
+
+
+def http_json(base, path, params=None):
+    from urllib.parse import quote
+
+    qs = "&".join(f"{k}={quote(v, safe='')}"
+                  for k, v in (params or {}).items())
+    status, _, body = http_call(base + path + ("?" + qs if qs else ""))
+    return status, json.loads(body)
+
+
+def boot_reads_equal(base, want, what):
+    for path, params, status, body in want["routes"]:
+        if http_json(base, path, params) != (status, body):
+            fail(f"{what}: {path} {params} differs from the store that "
+                 f"applied the same records")
+    if not any(b.get("traceIds") for p, _, _, b in want["routes"]
+               if p == "/api/query"):
+        fail(f"{what}: the queries compared nothing")
+    status, deps = http_json(base, "/api/dependencies")
+    if status != 200 or not want["links"] or not links_close(
+            other_links(deps), want["links"]):
+        fail(f"{what}: the dependency links differ")
+    return len(want["routes"]) + 1
+
+
+def known_reads_equal(base, oracle_api, known, what):
+    """The known traces' ``/api/trace`` and their services' queries over
+    the socket against the oracle server's answers."""
+    from zipkin_tpu_torch.ingest.receiver import _hex_id
+
+    routes = [(f"/api/trace/{_hex_id(tr[0].trace_id)}", {}) for tr in known]
+    q = {"endTs": BOOT_END_TS, "limit": "20"}
+    routes += [("/api/query", {"serviceName": svc, **q})
+               for svc in COLD_SERVICES]
+    routes += [("/api/query", {"serviceName": COLD_SERVICES[1],
+                               "spanName": COLD_OPS[3], **q}),
+               ("/api/query", {"serviceName": COLD_SERVICES[2],
+                               "annotationQuery": "http.uri=/api/widgets",
+                               **q})]
+    for path, params in routes:
+        want = direct_json(oracle_api, path, params)
+        if want[0] != 200 or http_json(base, path, params) != want:
+            fail(f"{what}: {path} {params} differs from the oracle's")
+    return len(routes)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class DaemonProcess:
+    """``python -m zipkin_tpu_torch.main.example`` as a child in a
+    session of its own, its output (stdout and stderr) read on a
+    thread; every wait has a deadline, and ``kill`` ends its process
+    group."""
+
+    def __init__(self, flags, env, what):
+        self.what = what
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "zipkin_tpu_torch.main.example", *flags],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        self.lines = []
+        self._cond = threading.Condition()
+        self._done = False
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self._cond:
+                self.lines.append((time.perf_counter() - self.t0,
+                                   line.rstrip("\n")))
+                self._cond.notify_all()
+        with self._cond:
+            self._done = True
+            self._cond.notify_all()
+
+    def tail(self, n: int = 40) -> str:
+        with self._cond:
+            return "\n".join(line for _, line in self.lines[-n:])
+
+    def find(self, prefix):
+        """(seconds from the start, line) of the first output line that
+        starts with ``prefix``, or None."""
+        with self._cond:
+            return next(((t, line) for t, line in self.lines
+                         if line.startswith(prefix)), None)
+
+    def wait_line(self, prefix, timeout_s: float, must: bool = True):
+        """The first line that starts with ``prefix``, waited for until
+        the deadline or the child's exit; without it, a failure, or None
+        when not ``must``."""
+        deadline = time.perf_counter() + timeout_s
+        with self._cond:
+            while True:
+                hit = next(((t, line) for t, line in self.lines
+                            if line.startswith(prefix)), None)
+                left = deadline - time.perf_counter()
+                if hit is not None or self._done or left <= 0:
+                    break
+                self._cond.wait(min(left, 1.0))
+        if hit is None and must:
+            fail(f"daemon {self.what}: no {prefix!r} line within "
+                 f"{timeout_s} s (exit {self.proc.poll()}); its output:\n"
+                 f"{self.tail()}")
+        return hit
+
+    def signal(self, sig) -> None:
+        os.killpg(self.proc.pid, sig)
+
+    def wait_exit(self, timeout_s: float) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            fail(f"daemon {self.what}: still running {timeout_s} s after "
+                 f"its signal; its output:\n{self.tail()}")
+        self._reader.join(timeout=60)
+        return rc
+
+    def kill(self) -> None:
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(timeout=120)
+        self._reader.join(timeout=60)
+
+
+def replayed_of(daemon):
+    """(records, spans, seconds) of a boot's replay line; zeros when the
+    boot replayed nothing (the daemon prints no line then)."""
+    hit = daemon.find(DAEMON_REPLAYED)
+    if hit is None:
+        return 0, 0, 0.0
+    w = hit[1].split()
+    return int(w[2]), int(w[4].lstrip("(")), float(w[7].rstrip("s"))
+
+
+def boot_daemon(torch, device, flags, env, what, live):
+    """Start a daemon and wait for its serving line: (process, base URL,
+    scribe port, boot record)."""
+    free_card(torch, device)
+    for attempt in range(DAEMON_BIND_TRIES):
+        # free_port releases its ports before the child binds them, after
+        # its boot: another process on the host may take one meanwhile.
+        # The child then dies on the bind, before it serves or journals
+        # anything, and a boot on fresh ports replays the same log.
+        port, scribe = free_port(), free_port()
+        d = DaemonProcess(flags + ["--port", str(port), "--scribe-port",
+                                   str(scribe)], env, what)
+        live.append(d)
+        hit = d.wait_line(DAEMON_READY, DAEMON_BOOT_S,
+                          must=attempt + 1 == DAEMON_BIND_TRIES)
+        if hit is not None:
+            break
+        if not any("Address already in use" in line for _, line in d.lines):
+            fail(f"daemon {what}: no serving line within {DAEMON_BOOT_S} s "
+                 f"(exit {d.proc.poll()}); its output:\n{d.tail()}")
+        d.kill()
+        log(f"daemon {what}: a port was taken before the child bound it; "
+            f"booting again on fresh ports")
+    ready_s, _ = hit
+    base = f"http://127.0.0.1:{port}"
+    restored = d.find(DAEMON_RESTORED)
+    records, spans, replay_s = replayed_of(d)
+    status, health = http_json(base, "/api/health")
+    if status != 200 or not health["ready"]:
+        fail(f"daemon {what}: /api/health answered {status} {health}")
+    rec = {"ready_s": ready_s,
+           "restore_s": (float(restored[1].split()[-1].rstrip("s"))
+                         if restored else None),
+           "replayed_records": records, "replayed_spans": spans,
+           "replay_s": replay_s, "health": [status, health["ready"]]}
+    log(f"daemon {what}: " + json.dumps(rec))
+    return d, base, scribe, rec
+
+
+def kernel_sequence(events):
+    """The ingest step kernels of a Chrome trace in start order: ``C``
+    for the arena claim (its kernels merged), ``W`` the arena write,
+    ``H`` the flat histogram."""
+    seq = []
+    for _, name in sorted((e["ts"], e["name"]) for e in events
+                          if e.get("cat") == "kernel"):
+        c = ("H" if "hist_multi" in name else
+             "W" if "arena_write" in name else
+             "C" if "arena_claim" in name else None)
+        if c is not None and not (c == "C" and seq and seq[-1] == "C"):
+            seq.append(c)
+    return seq
+
+
+def steps_in(seq, what):
+    """Complete claim-write-histogram steps in a kernel sequence; fails
+    unless, past a partial step at each edge of the capture, it is those
+    steps and nothing else (K1 once a step, after both K2 halves)."""
+    head = seq.index("C") if "C" in seq else len(seq)
+    body = seq[head:]
+    full = len(body) // 3
+    if (body[:3 * full] != ["C", "W", "H"] * full
+            or body[3 * full:] not in ([], ["C"], ["C", "W"])
+            or seq[:head] not in ([], ["H"], ["W", "H"])):
+        fail(f"{what}: the profiled kernels are not one claim, one write "
+             f"and one flat histogram a step: {''.join(seq)}")
+    return full
+
+
+def profile_during(base, what):
+    """Start ``POST /debug/profile?seconds=N`` on a thread and return once
+    the capture holds the profiler (a probe answers 409): (thread, result
+    dict)."""
+    got = {}
+
+    def capture():
+        got["resp"] = http_call(
+            base + f"/debug/profile?seconds={DAEMON_PROFILE_S}", b"",
+            timeout=300)
+
+    th = threading.Thread(target=capture, daemon=True)
+    th.start()
+    time.sleep(0.5)
+    deadline = time.perf_counter() + 120
+    while True:
+        status, _, body = http_call(base + "/debug/profile?seconds=0.01",
+                                    b"")
+        if status == 409:
+            break
+        if status == 200:
+            shutil.rmtree(json.loads(body)["profileDir"], ignore_errors=True)
+        if not th.is_alive() or time.perf_counter() > deadline:
+            fail(f"{what}: the profile capture did not start "
+                 f"({got.get('resp', (None,))[0]})")
+        time.sleep(0.2)
+    time.sleep(1.0)
+    return th, got
+
+
+def daemon_path(torch, K, scale, device, boot, traffic):
+    """The port's daemon as a process, ``python -m zipkin_tpu_torch.main.
+    example``, booted from ``durability_path``'s full-width snapshot and
+    log with the daemon's flags (``--use-pallas --cold-tier
+    --capture-backlog 4 --wal-dir --checkpoint``, the rest at its
+    defaults) and driven over its own sockets: boot A replays exactly the
+    records past the snapshot and reads back what the recovered store
+    answered; four Scribe clients send two launches of spans, 100 known
+    traces and one corrupt entry (acked after the durable append) while
+    ``POST /debug/profile`` captures the card, whose kernels must be one
+    arena claim, one arena write and one flat histogram a step; the known
+    traces read back equal to an oracle server's; SIGTERM ends it with
+    exit 0 after the ordered shutdown; boot B from the snapshot that
+    shutdown saved reads the known traces back; 20 more known traces
+    are acked and the child is SIGKILLed; boot C replays the tail and
+    reads back every acked trace. Meanwhile ``main.tracegen`` runs as
+    two children (the card store and ``--memory-store``), each exit 0.
+    The children load the kernels this script built (nvcc is out of
+    their reach) and leave the libraries as they were."""
+    import glob
+
+    from zipkin_tpu_torch import native, obs
+    from zipkin_tpu_torch.api import ApiServer
+    from zipkin_tpu_torch.ingest import ResultCode
+    from zipkin_tpu_torch.ingest.scribe_server import ScribeClient
+    from zipkin_tpu_torch.query import QueryService
+    from zipkin_tpu_torch.store.memory import InMemorySpanStore
+    from zipkin_tpu_torch.wire.thrift import span_to_scribe_message
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    work = boot["work"]
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    if on_card:
+        # No toolkit in reach: a child that tried to build a kernel
+        # would fail, so the boots prove it loads the built libraries.
+        env["CUDA_HOME"] = os.path.join(work, "no-cuda-toolkit")
+    if not native.available():
+        fail("daemon path: the port's native codec did not build")
+    libs = {p: os.stat(p).st_mtime_ns for p in glob.glob(
+        os.path.join(HERE, "build", "zipkin_tpu_torch", "*.so"))}
+    flags = ["--host", "127.0.0.1", "--use-pallas", "--cold-tier",
+             "--capture-backlog", "4", "--wal-dir", boot["wal_dir"],
+             "--checkpoint", boot["ckpt"], "--checkpoint-interval", "3600"]
+    if not on_card:
+        flags += ["--platform", "cpu"]
+    tracegens = [(extra, subprocess.Popen(
+        [sys.executable, "-m", "zipkin_tpu_torch.main.tracegen", *extra],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True))
+        for extra in ([], ["--memory-store"]) if on_card or extra]
+    oracle = InMemorySpanStore()
+    for tr in traffic["known"]:
+        oracle.apply(tr)
+    oracle_svc = QueryService(oracle, coalesce_window_s=0.0)
+    oracle_api = ApiServer(oracle_svc, self_trace=False,
+                           registry=obs.Registry())
+    live = []
+    out = {"spans_sent": traffic["sent"], "log_calls": len(traffic["calls"])}
+    try:
+        # -- boot A: the durability snapshot plus the log's tail ---------
+        d, base, scribe, out["boot_a"] = boot_daemon(
+            torch, device, flags, env, "boot A", live)
+        want = boot["records_past_snapshot"]
+        if out["boot_a"]["replayed_records"] != want:
+            fail(f"daemon boot A: replayed "
+                 f"{out['boot_a']['replayed_records']} records, {want} lie "
+                 f"past the snapshot")
+        t = time.perf_counter()
+        out["boot_a"]["reads_compared"] = boot_reads_equal(
+            base, boot["answers"], "daemon boot A")
+        out["boot_a"]["reads_s"] = time.perf_counter() - t
+
+        # -- Scribe traffic, profiled in its second half ---------------------
+        # The first half runs with no capture: its rate and ack tail are
+        # the daemon's. The second half runs under the torch.profiler
+        # capture; beside the first, it is the profiler's cost.
+        calls = traffic["calls"]
+        half = len(calls) // 2
+        corrupt = base64.b64encode(CORRUPT_ENTRY).decode()
+        spans = [sum(m != corrupt for c in part for _, m in c)
+                 for part in (calls[:half], calls[half:])]
+        t0 = time.perf_counter()
+        acks, retries = send_calls("127.0.0.1", scribe, calls[:half],
+                                   what="daemon path")
+        first_s = time.perf_counter() - t0
+        cap, got = profile_during(base, "daemon path")
+        t1 = time.perf_counter()
+        more, more_retries = send_calls("127.0.0.1", scribe, calls[half:],
+                                        what="daemon path")
+        second_s = time.perf_counter() - t1
+        cap.join(timeout=300)
+        status, _, body = got.get("resp", (None, None, b"{}"))
+        if status != 200:
+            fail(f"daemon path: /debug/profile answered {status} "
+                 f"{body[:200]!r}")
+        prof = json.loads(body)
+        try:
+            with open(os.path.join(prof["profileDir"], "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            shutil.rmtree(prof["profileDir"], ignore_errors=True)
+        seq = kernel_sequence(events)
+        steps = steps_in(seq, "daemon path") if on_card else 0
+        if on_card and steps < 1:
+            fail(f"daemon path: the profile holds no whole ingest step "
+                 f"({len(events)} events)")
+        launches = {"flat_histogram": seq.count("H"),
+                    "arena_claim": seq.count("C"),
+                    "arena_write": seq.count("W"), "paged_page_gather": 0}
+        status, mj = http_json(base, "/metrics", {"format": "json"})
+        if status != 200 or mj.get("store.scatter_path_pallas") != 1:
+            fail(f"daemon path: /metrics?format=json shows "
+                 f"store.scatter_path_pallas "
+                 f"{mj.get('store.scatter_path_pallas')}")
+        t = time.perf_counter()
+        n_known = known_reads_equal(base, oracle_api, traffic["known"],
+                                    "daemon path (known traces)")
+        out["traffic"] = {
+            "spans": spans[0], "send_s": first_s,
+            "scribe_spans_per_s": spans[0] / first_s,
+            "ack_ms_p50": float(np.percentile(acks, 50)),
+            "ack_ms_p99": float(np.percentile(acks, 99)),
+            "profiled_half": {
+                "spans": spans[1], "send_s": second_s,
+                "scribe_spans_per_s": spans[1] / second_s,
+                "ack_ms_p50": float(np.percentile(more, 50)),
+                "ack_ms_p99": float(np.percentile(more, 99))},
+            "try_later": retries + more_retries,
+            "profile_s": prof["seconds"], "profile_events": len(events),
+            "profiled_steps": steps, "profiled_launches": launches,
+            "known_reads": n_known, "known_reads_s": time.perf_counter() - t,
+            "collector_spans_stored": mj.get("collector.spans_stored"),
+            "store_batches": mj.get("store.batches")}
+        log("daemon traffic: " + json.dumps(out["traffic"]))
+
+        # -- SIGTERM: the ordered shutdown, then exit 0 ----------------------
+        t = time.perf_counter()
+        d.signal(signal.SIGTERM)
+        rc = d.wait_exit(DAEMON_EXIT_S)
+        out["sigterm_to_exit_s"] = time.perf_counter() - t
+        if rc != 0 or any("Traceback" in line for _, line in d.lines):
+            fail(f"daemon path: exit {rc} after SIGTERM; its output:\n"
+                 f"{d.tail()}")
+        log(f"daemon path: SIGTERM to exit 0 in "
+            f"{out['sigterm_to_exit_s']:.1f} s")
+
+        # -- boot B: the snapshot the shutdown saved (tiered now) ------------
+        d, base, scribe, out["boot_b"] = boot_daemon(
+            torch, device, flags, env, "boot B", live)
+        # The shutdown flushes the lineage tracker after its checkpoint
+        # (as the reference's does), so at most that one record lies past
+        # the snapshot.
+        if out["boot_b"]["replayed_records"] > 1:
+            fail(f"daemon boot B: replayed "
+                 f"{out['boot_b']['replayed_records']} records after a "
+                 f"graceful shutdown")
+        known_reads_equal(base, oracle_api, traffic["known"],
+                          "daemon boot B")
+
+        # -- a crash after 20 more acked known traces ------------------------
+        late = cold_known(DAEMON_LATE_KNOWN, 42, WIN_BASE_US + (
+            traffic["first_launch"] + 2) * WIN_STEP_US)
+        client = ScribeClient("127.0.0.1", scribe, timeout_s=120.0)
+        try:
+            code = client.log([("zipkin", span_to_scribe_message(s))
+                               for tr in late for s in tr])
+        finally:
+            client.close()
+        if code is not ResultCode.OK:
+            fail(f"daemon path: the late known traces were answered {code}")
+        for tr in late:
+            oracle.apply(tr)
+        d.signal(signal.SIGKILL)
+        d.wait_exit(120)
+
+        # -- boot C: the log's tail replays; every acked trace reads back ----
+        d, base, scribe, out["boot_c"] = boot_daemon(
+            torch, device, flags, env, "boot C", live)
+        if out["boot_c"]["replayed_records"] < 1:
+            fail("daemon boot C: no record replayed after the crash")
+        known_reads_equal(base, oracle_api, traffic["known"] + late,
+                          "daemon boot C")
+        d.signal(signal.SIGKILL)
+        d.wait_exit(120)
+
+        # -- the tracegen children and the built libraries -------------------
+        out["tracegen"] = {}
+        for extra, proc in tracegens:
+            try:
+                text, _ = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                fail(f"tracegen {extra}: still running after 600 s")
+            lines = text.splitlines()
+            if proc.returncode != 0 or not lines or not lines[-1].endswith(
+                    "-> OK"):
+                fail(f"tracegen {extra}: exit {proc.returncode}:\n{text}")
+            out["tracegen"][" ".join(extra) or "card"] = lines[-1]
+        now = {p: os.stat(p).st_mtime_ns for p in glob.glob(
+            os.path.join(HERE, "build", "zipkin_tpu_torch", "*.so"))}
+        if now != libs:
+            fail("daemon path: a child rebuilt or added a kernel library")
+    finally:
+        for d in live:
+            d.kill()
+        for _, proc in tracegens:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=120)
+        oracle_svc.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["kernel_launches"] = launches
+    out["ingest_steps"] = steps
+    out["s"] = time.perf_counter() - t_phase
+    log("daemon path result: " + json.dumps(out))
+    return out
 
 
 def _lineage_checks(store, wal, reg, what):
@@ -2214,7 +2821,7 @@ def cold_tier_path(torch, K, dev, scale, device, window):
     from zipkin_tpu_torch.store.archive import ArchiveParams, TieredSpanStore
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
 
-    cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
+    cfg = full_config(dev, scale.cold_log2, scale.services, **WINDOW)
     free_card(torch, device)
     hot = TorchSpanStore(cfg, device=device.type, registry=obs.Registry())
     hot.capture_backlog = 4
@@ -2556,47 +3163,68 @@ def scribe_messages(args):
             np.array([s.trace_id for s in spans], np.int64), debug)
 
 
-def prepare_scribe_traffic(scale):
-    """The collector phase's traffic, made before any clock starts: the
-    four stream launches and the sampled launch (1% debug) in worker
-    processes, one a launch; 100 known traces on services of their own,
-    each placed whole at the head of one log call; one corrupt entry in
-    the second call. Returns (stream calls, sampled calls, sampled trace
-    ids and debug flags, known traces, span count sent, prep s)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+def scribe_calls(msgs, known, size):
+    """Log calls of ``size`` entries over the stream's ``msgs``, each of
+    the ``known`` traces placed whole at the head of one call, and one
+    corrupt entry in the second call. Returns (calls, spans sent)."""
     from zipkin_tpu_torch.wire.thrift import span_to_scribe_message
 
-    t = time.perf_counter()
-    n = scale.collector_launches
-    jobs = [(i, 31, scale.services - len(COLD_SERVICES) - 1,
-             scale.names - len(COLD_OPS) - 1, scale.batch_traces,
-             100 if i == n else 0) for i in range(n + 1)]
-    with ProcessPoolExecutor(max_workers=scale.prep_workers,
-                             mp_context=multiprocessing.get_context(
-                                 "spawn")) as pool:
-        made = list(pool.map(scribe_messages, jobs))
-    stream = [m for msgs, _, _ in made[:n] for m in msgs]
-    size = scale.scribe_call
-    calls = [[("zipkin", m) for m in stream[i:i + size]]
-             for i in range(0, len(stream), size)]
-    known = cold_known(scale.cold_known, 32, WIN_BASE_US)
+    calls = [[("zipkin", m) for m in msgs[i:i + size]]
+             for i in range(0, len(msgs), size)]
     for k, tr in enumerate(known):
         head = [("zipkin", span_to_scribe_message(s)) for s in tr]
         c = k * len(calls) // len(known)
         calls[c] = head + calls[c]
     calls[1].insert(len(calls[1]) // 2, (
         "zipkin", base64.b64encode(CORRUPT_ENTRY).decode()))
-    sent = len(stream) + sum(len(tr) for tr in known)
+    return calls, len(msgs) + sum(len(tr) for tr in known)
+
+
+def prepare_scribe_traffic(scale):
+    """The Scribe traffic of the collector and daemon phases, made before
+    any clock starts, in worker processes, one a launch: the collector's
+    stream launches and its sampled launch (1% debug); the daemon's
+    stream launches, drawn past the durability stream's launches (the
+    generators number traces alike, so the daemon's trace ids are new to
+    the snapshot it boots from); each phase's known traces on services
+    of their own; one corrupt entry a phase. Returns (stream calls,
+    sampled calls, sampled trace ids and debug flags, known traces, span
+    count sent, prep s, the daemon's traffic)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t = time.perf_counter()
+    n = scale.collector_launches
+    first = 2 * scale.durability_launches + 1
+    n_services = scale.services - len(COLD_SERVICES) - 1
+    n_names = scale.names - len(COLD_OPS) - 1
+    jobs = [(i, 31, n_services, n_names, scale.batch_traces,
+             100 if i == n else 0) for i in range(n + 1)]
+    jobs += [(first + k, 31, n_services, n_names, scale.batch_traces, 0)
+             for k in range(scale.daemon_launches)]
+    with ProcessPoolExecutor(max_workers=scale.prep_workers,
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as pool:
+        made = list(pool.map(scribe_messages, jobs))
+    size = scale.scribe_call
+    known = cold_known(scale.cold_known, 32, WIN_BASE_US)
+    calls, sent = scribe_calls([m for msgs, _, _ in made[:n] for m in msgs],
+                               known, size)
     msgs, tids, debug = made[n]
     sampled = [[("zipkin", m) for m in msgs[i:i + size]]
                for i in range(0, len(msgs), size)]
+    d_known = cold_known(scale.cold_known, 41,
+                         WIN_BASE_US + first * WIN_STEP_US)
+    d_calls, d_sent = scribe_calls(
+        [m for msgs, _, _ in made[n + 1:] for m in msgs], d_known, size)
+    daemon = {"calls": d_calls, "known": d_known, "sent": d_sent,
+              "first_launch": first}
     return (calls, sampled, tids, debug, known, sent,
-            time.perf_counter() - t)
+            time.perf_counter() - t, daemon)
 
 
-def send_calls(host, port, calls, n_clients: int = 4):
+def send_calls(host, port, calls, n_clients: int = 4,
+               what: str = "collector path"):
     """``n_clients`` ScribeClient connections share ``calls`` (client c
     sends calls c, c + n, ...); a client resends a call answered
     TRY_LATER. Returns (ack ms of each call answered OK, TRY_LATER
@@ -2634,7 +3262,7 @@ def send_calls(host, port, calls, n_clients: int = 4):
     for th in threads:
         th.join()
     if errors:
-        fail(f"collector path: a scribe client failed: {errors[0]!r}")
+        fail(f"{what}: a scribe client failed: {errors[0]!r}")
     return acks, retries[0]
 
 
@@ -2768,9 +3396,11 @@ def collector_path(torch, K, dev, scale, device, window):
         fail(f"collector path: the native codec did not load from the "
              f"port's build directory ({native.loaded_from})")
     (calls, sampled_calls, s_tids, s_debug, known, sent,
-     prep_s) = prepare_scribe_traffic(scale)
+     prep_s, daemon_traffic) = prepare_scribe_traffic(scale)
     log(f"collector path: {sent} spans in {len(calls)} log calls and "
-        f"{len(sampled_calls)} sampled calls prepared in {prep_s:.1f} s")
+        f"{len(sampled_calls)} sampled calls prepared in {prep_s:.1f} s "
+        f"(and the daemon phase's {daemon_traffic['sent']} spans in "
+        f"{len(daemon_traffic['calls'])} calls)")
     oracle = InMemorySpanStore()
     for tr in known:
         oracle.apply(tr)
@@ -2957,7 +3587,7 @@ def collector_path(torch, K, dev, scale, device, window):
         "kernel_launches": launches,
     }
     log("collector path result: " + json.dumps(result))
-    return result
+    return result, daemon_traffic
 
 
 def small_scribe_calls(scale, seed: int):
@@ -4771,8 +5401,8 @@ def main() -> int:
                    device)
     phase("cold_tier_parity", cold_tier_parity, torch, dev, scale,
           args.rehearse)
-    coll = phase("collector_path", collector_path, torch, K, dev, scale,
-                 device, wresult)
+    coll, daemon_traffic = phase("collector_path", collector_path, torch, K,
+                                 dev, scale, device, wresult)
     query = phase("query_path", query_path, torch, K, dev, scale, device)
     phase_s["http (inside query_path)"] = query["http"]["s"]
     log(f"phase http (inside query_path): {query['http']['s']:.1f} s")
@@ -4781,8 +5411,10 @@ def main() -> int:
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
     phase("paged_parity", parity_phase, torch, dev, scale, args.rehearse,
           True)
-    durable = phase("durability_path", durability_path, torch, K, dev,
-                    scale, device)
+    durable, boot = phase("durability_path", durability_path, torch, K,
+                          dev, scale, device)
+    daemon = phase("daemon_path", daemon_path, torch, K, scale, device,
+                   boot, daemon_traffic)
     fleet = phase("fleet_path", fleet_path, torch, K, dev, scale, device)
     dpaged = phase("durability_paged", durability_paged, torch, K, dev,
                    scale, device)
@@ -4801,7 +5433,8 @@ def main() -> int:
                "collector": coll["kernel_launches"],
                "query": query["kernel_launches"],
                "http": query["http"]["kernel_launches"],
-               "fleet": fleet["kernel_launches"]}
+               "fleet": fleet["kernel_launches"],
+               "daemon": daemon["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -4813,7 +5446,8 @@ def main() -> int:
                      "collector": coll["ingest_steps"],
                      "query": query["ingest_steps"],
                      "http": query["http"]["ingest_steps"],
-                     "fleet": fleet["ingest_steps"]}
+                     "fleet": fleet["ingest_steps"],
+                     "daemon": daemon["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",

@@ -943,3 +943,69 @@ def test_cuda_lineage_matches_cpu_twin(cuda, tmp_path):
     assert len(card[1]) >= len(applies) and card[1] == cpu[1]
     assert card[2] == cpu[2]
     _assert_same_store(cpu[0], card[0])
+
+
+@pytest.mark.cuda
+def test_cuda_tracegen_run_on_the_card(cuda):
+    from zipkin_tpu_torch.main import tracegen
+
+    # The default device is the card; the small store takes the plain
+    # torch route (no use_pallas), as the reference's takes XLA's.
+    assert tracegen.run(n_traces=3, max_depth=4, verbose=False) is True
+
+
+_CENSUS_CFG = dict(
+    capacity=1 << 10, ann_capacity=1 << 12, bann_capacity=1 << 11,
+    max_services=32, max_span_names=128, max_annotation_values=256,
+    max_binary_keys=64, cms_width=1 << 10, hll_p=8, quantile_buckets=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["plain", "kernels"])
+@pytest.mark.parametrize("layout", [
+    {}, {"window_seconds": 60}, {"layout": "paged", "page_rows": 128}],
+    ids=["ring", "window", "paged"])
+def test_cuda_step_census_matches_cpu(cuda, layout, use_pallas):
+    from zipkin_tpu_torch.store import census
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+    from zipkin_tpu_torch.store.device import StoreConfig
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+    cfg = StoreConfig(**_CENSUS_CFG, **layout, use_pallas=use_pallas)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        store = TorchSpanStore(cfg, device=dev)
+        before = state_to_numpy(store.state)
+        launches = dict(K.LAUNCHES)
+        got[dev] = store.step_census()
+        # On the card each counted wrapper call launched its kernel, over
+        # the empty batch's invalid rows; on the CPU the twins launch
+        # nothing.
+        assert {k: K.LAUNCHES[k] - launches[k] for k in census.KERNELS} \
+            == {k: got[dev][k] if dev == "cuda" else 0
+                for k in census.KERNELS}
+        after = state_to_numpy(store.state)
+        assert all(np.array_equal(before[k], after[k]) for k in before
+                   if not isinstance(before[k], dict))
+    assert got["cuda"] == got["cpu"]
+    assert census.gated(got["cuda"]) == census.row_of(cfg)
+
+
+@pytest.mark.cuda
+def test_cuda_build_app_platform_cpu_builds_a_cpu_store(cuda):
+    from zipkin_tpu_torch.main import example
+
+    built = []
+    try:
+        for argv, want in ((["--platform", "cpu"], "cpu"), ([], "cuda")):
+            args = example.build_parser().parse_args(
+                argv + ["--capacity", "1024", "--no-fleet-obs"])
+            store, collector, api, _ = example.build_app(args)
+            built.append((collector, api))
+            assert store.device.type == want
+            assert store.state.leaves["write_pos"].device.type == want
+    finally:
+        for collector, api in built:
+            collector.close()
+            api.query.close()

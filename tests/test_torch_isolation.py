@@ -131,3 +131,22 @@ def test_fleet_imports_without_jax():
             "assert fleet.fsync_parked_probe and fleet.sealer_backlog_probe")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_daemon_imports_without_jax():
+    """The daemon entry, tracegen's main and the step census import with
+    JAX and the JAX package blocked, and the store has ``step_census``."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['zipkin_tpu'] = None; "
+            "import zipkin_tpu_torch.main; "
+            "from zipkin_tpu_torch.main import example, tracegen; "
+            "from zipkin_tpu_torch.store import census; "
+            "from zipkin_tpu_torch.store.torch_store import TorchSpanStore; "
+            "assert example.build_app and example.shutdown and "
+            "example.serve_until and tracegen.run; "
+            "assert census.LOWERING_TABLE and TorchSpanStore.step_census")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)

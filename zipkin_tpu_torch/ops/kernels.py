@@ -21,7 +21,8 @@ Each wrapper takes its plain PyTorch twin ONLY for tensors on the CPU
 (the tests run there). For CUDA tensors it launches its kernel or
 raises; no path falls back. ``LAUNCHES`` counts kernel launches per
 wrapper (the twins do not count), so a run can show the store went
-through the kernels.
+through the kernels. Under a step census (``store/census.py``) each
+wrapper also counts its call there, once, and runs as it always does.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 plain-C shared libraries under ``build/zipkin_tpu_torch/`` next to the
@@ -33,9 +34,11 @@ per source, started together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -85,6 +88,34 @@ def compile_count(names) -> int:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class _CensusHook(threading.local):
+    """While ``store/census.py`` counts a step on this thread, ``hook``
+    takes a kernel's name and returns the context its call runs in."""
+
+    hook = None
+
+
+CENSUS = _CensusHook()
+
+
+def _counted(name: str):
+    """Wrapper decorator: while a census runs on this thread the call
+    counts once under ``name`` and runs inside the census's context,
+    which does not count the ops the wrapper dispatches (its twin's on
+    the CPU; a kernel's ctypes launch reaches no dispatcher), so a
+    step's census is the same on the CPU and on the card."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            hook = CENSUS.hook
+            if hook is None:
+                return fn(*a, **kw)
+            with hook(name):
+                return fn(*a, **kw)
+        return call
+    return deco
 
 
 def _nvcc() -> str:
@@ -246,6 +277,7 @@ def hist_table(sites):
     return table, rows
 
 
+@_counted("flat_histogram")
 def histogram_update_many(sites) -> None:
     """Up to ``HIST_MAX_SITES`` flat histograms in ONE kernel launch:
     for each ``(counts, idx, weights)`` site, ``counts`` (int32, any
@@ -327,6 +359,7 @@ def arena_claim_plain(bucket: torch.Tensor, valid: torch.Tensor,
     return rank, cnt[:n_buckets]
 
 
+@_counted("arena_claim")
 def arena_claim(bucket: torch.Tensor, valid: torch.Tensor, n_buckets: int):
     """Each row's FIFO rank within its bucket and each bucket's count of
     valid rows, bitwise ``arena_claim_plain``: ``(rank int32 [n], cnt
@@ -375,6 +408,7 @@ def arena_write_plain(entries, rank, cnt, bucket, base, slot0, depth, vals,
     return entries
 
 
+@_counted("arena_write")
 def arena_write(entries: torch.Tensor, rank: torch.Tensor, cnt: torch.Tensor,
                 bucket: torch.Tensor, base: torch.Tensor, slot0: torch.Tensor,
                 depth: torch.Tensor, vals: torch.Tensor,
@@ -495,6 +529,7 @@ def _gather_table(cols, page_rows: int, dev):
     return table
 
 
+@_counted("paged_page_gather")
 def paged_page_gather(cols, pages: torch.Tensor,
                       page_rows: int) -> torch.Tensor:
     """Gather ``K = len(pages)`` pages of ``page_rows`` rows out of the

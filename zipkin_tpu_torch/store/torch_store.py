@@ -1601,6 +1601,36 @@ class TorchSpanStore(WindowedAnalytics, SpanStore):
         self._cblock_memo = (self._step_seq, blk)
         return blk
 
+    def step_census(self, n_spans: int = 256, n_anns: int = 512,
+                    n_banns: int = 256) -> Dict[str, int]:
+        """Dispatch census of one ingest step at the given pad shapes
+        (``store/census.py``): the scatter/sort/gather-class aten ops,
+        all ops, and the kernel wrapper calls it makes. Memoized per
+        shape; computed only when asked, on an empty batch that leaves
+        the state as it was — metric scrapes never pay it."""
+        key = (n_spans, n_anns, n_banns)
+        memo = getattr(self, "_census_memo", None)
+        if memo is not None and memo[0] == key:
+            return memo[1]
+        from zipkin_tpu_torch.store import census
+
+        # Paged steps take planner-assigned slot/gid columns (shape
+        # [P]); empty ones keep the traced shapes what _pad_unit feeds.
+        paged_cols = (
+            dict(span_slot=np.zeros(0, np.int32),
+                 span_gid=np.zeros(0, np.int64),
+                 reclaim_pages=np.zeros(0, np.int32))
+            if self.config.paged_enabled else {})
+        db = dev.make_device_batch(
+            SpanBatch.empty(0, 0, 0), name_lc_id=np.zeros(0, np.int32),
+            indexable=np.zeros(0, bool), pad_spans=n_spans,
+            pad_anns=n_anns, pad_banns=n_banns, **paged_cols)
+        with self._lock, self._state_lock:
+            counts = census.count_step(
+                self.state, dev.batch_to_device(db, self.device))
+        self._census_memo = (key, counts)
+        return counts
+
     def counters(self) -> Dict[str, float]:
         out = {k: float(v) for k, v in self.counter_block().items()}
         out["anns_truncated"] = float(self.anns_truncated)
