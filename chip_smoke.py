@@ -122,7 +122,7 @@ nvcc per source, started together), then
 14. the daemon's read path at full width (``query_path``):
    ``QueryService(store)`` with the daemon's 2 ms window over the window
    store, loaded with 12 launches of the stream and 100 known traces on
-   five services of their own; eight reader threads send ~2,000
+   five services of their own; eight reader threads send ~1,200
    ``get_trace_ids`` requests (by service, span name, annotation and
    binary annotation, limits 10 and 100, each order, a tenth with two
    or three terms, drawn with repeats) and ~200 sketch reads while the
@@ -145,7 +145,7 @@ nvcc per source, started together), then
    every pool request as ``GET /api/query`` must equal the direct
    ``QueryService`` answer, the known traces' ``/api/trace`` an oracle
    server's, and the catalog, dependency and quantile routes
-   ``api.handle``; eight readers send 2,000 requests through the
+   ``api.handle``; eight readers send 1,200 requests through the
    sockets with no launch landing (client ms, the server's handle ms,
    the engine's serve ms by tier, the HTTP share, reads/s, idle share);
    three ``POST /scribe`` calls of 2,048 entries with 20 late known
@@ -185,8 +185,8 @@ nvcc per source, started together), then
    the daemon's defaults) in a session of its own, driven over its own
    sockets. Boot A must replay exactly the log records past the
    snapshot and answer 121 reads equal to the recovered store's through
-   an ``ApiServer`` in this process; four Scribe clients send two
-   launches of spans, 100 known traces and a corrupt entry (acked after
+   an ``ApiServer`` in this process; four Scribe clients send a
+   launch of spans, 100 known traces and a corrupt entry (acked after
    the durable append; the traffic made with the collector phase's)
    while ``POST /debug/profile`` traces the card: its kernels must be
    one arena claim, one arena write and one flat histogram a step (the
@@ -200,10 +200,38 @@ nvcc per source, started together), then
    ``python -m zipkin_tpu_torch.main.tracegen`` children (the card
    store and ``--memory-store``) must exit 0. The children run with no
    CUDA toolkit in reach and must leave the kernel libraries this script
-   built as they were. It prints each boot's ready, restore and replay
-   seconds and health, the scribe spans/s and ack ms of the unprofiled
-   half (the profiled half beside them, as the profiler's cost), and
-   the seconds from SIGTERM to exit.
+   built as they were. Beside boot A (``--ship-port``) a standby
+   follower runs as a child (``--follow --follow-mode standby`` from a
+   copy of the same snapshot, on the card): after the Scribe traffic its
+   ``/api/replication`` must show zero lag at the primary's durable
+   frontier (read once: the primary's API self-traces, so polling it
+   would journal a record a request) and the known
+   traces must read back over its HTTP port equal to the oracle's; then
+   SIGTERM ends both with exit 0. It prints each boot's ready, restore
+   and replay seconds and health, the scribe spans/s and ack ms of the
+   unprofiled half (the profiled half beside them, as the profiler's
+   cost), the follower's ready, catch-up and exit seconds, and the
+   seconds from SIGTERM to exit;
+17. replication (``replication_path``, full width, the window on): a
+   primary with a WAL at the daemon's fsync interval and lineage at 1
+   in 64 serves a ``ShipServer`` on 127.0.0.1; a warm standby on the
+   same card (built from HELLO's config) and a device-free replica
+   follow it through four journaled launches and 100 known traces. The
+   standby's state must equal the primary's (moments within stated
+   tolerance 2), the replica's mirror the primary's device aggregates
+   bitwise, the reads agree three ways, each standby step launch K1 and
+   both K2 halves once (the ``replication`` entry of
+   ``launches_by_path``: the launches less the primary's steps), and
+   each sampled record's trace hold ``ship``, ``standby apply`` and
+   ``replica apply``. Then the ship server is closed and rebound with
+   both connections dropped (both reconnect, no anchor served), the
+   standby is promoted and takes a journaled launch, and a late replica
+   whose cursor precedes the truncated log bootstraps from an anchor
+   equal to the primary's mirror. It prints shipped records/s and MB/s,
+   commit-to-visible lag p50/p99 a follower, the standby's apply
+   spans/s beside the primary's journaled ``write_batch``, the
+   replica's seconds a record (mirror fold, seal), the anchor's bytes
+   and seconds, and the reconnect seconds.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -284,7 +312,7 @@ class Scale:
         if rehearse:
             self.cap_log2, self.services, self.names = 10, 40, 64
             self.batch_traces, self.stream_spans = 64, 4 * (1 << 10)
-            self.known, self.small_log2, self.small_batches = 60, 10, 24
+            self.known, self.small_log2, self.small_batches = 60, 10, 18
             self.small_traces = 16
             self.window_launches, self.pipe_applies = 34, 4
             self.pipe_traces = 64
@@ -307,15 +335,18 @@ class Scale:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
             self.stream_spans = (5 * (1 << 22)) // 4
-            self.known, self.small_log2, self.small_batches = 2000, 14, 24
+            # 18 batches four buckets apart (72 > 64 slots; cut from 24
+            # three apart since the replication phase).
+            self.known, self.small_log2, self.small_batches = 2000, 14, 18
             self.small_traces = 512
             # 46 launches two buckets apart: 92 buckets > 64 slots.
             self.window_launches = 46
-            # 8 apply calls of 28,672 spans (the first untimed), and 5
+            # 6 apply calls of 28,672 spans (the first untimed), and 5
             # launches before the checkpoint and 5 after (the tail): cut
             # from 12 and 8 + 8 to keep the script near half its time
-            # limit since the cold-tier phases.
-            self.pipe_applies, self.pipe_traces = 8, 4096
+            # limit since the cold-tier phases (the applies from 8 to 6
+            # since the replication phase).
+            self.pipe_applies, self.pipe_traces = 6, 4096
             self.durability_launches = 5
             # 12 apply calls of 3,584 spans into 2^14 slots: the page
             # pool of 128 pages runs out and reclaims.
@@ -335,9 +366,10 @@ class Scale:
             self.prep_workers = 5
             # The query phase: 12 + 4 launches (1,835,008 spans) stay
             # inside one lap of the 2^22 ring, so no known trace laps;
-            # ~2,000 requests drawn from a pool of 160 (repeats).
+            # ~1,200 requests drawn from a pool of 160 (repeats; 2,000
+            # before the replication phase came).
             self.query_log2, self.query_launches = 22, 12
-            self.query_requests, self.query_pool = 2000, 160
+            self.query_requests, self.query_pool = 1200, 160
             # The fleet phase's overhead rounds: 3 journaled launches a
             # round (~0.45 s each), three rounds a store after a warm one.
             self.fleet_round = 3
@@ -346,14 +378,18 @@ class Scale:
             # spans, not the 2^22 ring's ~4.13 M, whose host seal took
             # 154-208 s of the script's 1,200 s.
             self.cold_log2 = 20
+        # The replication phase: 4 journaled launches and the known
+        # traces shipped to a standby and a replica.
+        self.replication_launches = 4
         # The fleet phase: 4 journaled launches traced unit by unit,
         # then 3 timed rounds a store, lineage off and on in turn.
         self.fleet_launches, self.fleet_rounds = 4, 3
         # Two launches of the stream through the Scribe front end (cut
-        # from four to make room for the daemon phase), and two through
-        # the daemon's own Scribe port.
+        # from four to make room for the daemon phase), and one through
+        # the daemon's own Scribe port (cut from two to make room for the
+        # replication phase and the daemon's standby child).
         self.collector_launches = 2
-        self.daemon_launches = 2
+        self.daemon_launches = 1
         # The query phase: the window store loaded with part of a lap,
         # eight readers, four launches while they read.
         self.query_writes, self.query_readers = 4, 8
@@ -1022,12 +1058,12 @@ def paged_path(torch, K, dev, scale, device):
 
 # The daemon's window geometry (``--window-seconds 60 --window-buckets
 # 64``); window-path launches move two buckets a launch, parity batches
-# three, so both lap the 64-slot ring.
+# four, so both lap the 64-slot ring.
 WINDOW = dict(window_seconds=60, window_buckets=64)
 WIN_US = 60_000_000
 WIN_BASE_US = (1_700_000_000_000_000 // WIN_US) * WIN_US
 WIN_STEP_US = 2 * WIN_US
-PARITY_STEP_US = 3 * WIN_US
+PARITY_STEP_US = 4 * WIN_US
 WINDOW_LEAVES = ("svc_hist", "ann_svc_counts", "name_presence",
                  "ann_value_counts", "bann_key_counts", "hll_traces",
                  "win_epoch", "win_counts", "win_sums", "win_mm")
@@ -1592,7 +1628,7 @@ BOOT_END_TS = str(2**62)
 DAEMON_BOOT_S = 600
 DAEMON_EXIT_S = 600
 DAEMON_LATE_KNOWN = 20
-DAEMON_PROFILE_S = 6
+DAEMON_PROFILE_S = 4
 DAEMON_BIND_TRIES = 3
 
 
@@ -1837,6 +1873,65 @@ def boot_daemon(torch, device, flags, env, what, live):
     return d, base, scribe, rec
 
 
+FOLLOWER_READY = "zipkin-tpu standby following "
+FOLLOWER_NAME = "standby-smoke"
+
+
+def spawn_follower(flags, env, live):
+    """Start a follower daemon (``--follow``) on a fresh port: (process,
+    port). ``await_follower`` waits for its serving line."""
+    port = free_port()
+    d = DaemonProcess(flags + ["--port", str(port)], env, "follower")
+    live.append(d)
+    return d, port
+
+
+def await_follower(d, port, flags, env, live):
+    """Wait for a spawned follower's serving line (booting again on a
+    fresh port when another process took its port meanwhile): (process,
+    base URL, boot record)."""
+    for attempt in range(DAEMON_BIND_TRIES):
+        hit = d.wait_line(FOLLOWER_READY, DAEMON_BOOT_S,
+                          must=attempt + 1 == DAEMON_BIND_TRIES)
+        if hit is not None:
+            break
+        if not any("Address already in use" in line for _, line in d.lines):
+            fail(f"daemon follower: no serving line within {DAEMON_BOOT_S} "
+                 f"s (exit {d.proc.poll()}); its output:\n{d.tail()}")
+        d.kill()
+        log("daemon follower: its port was taken; booting again")
+        d, port = spawn_follower(flags, env, live)
+    restored = d.find(DAEMON_RESTORED)
+    rec = {"ready_s": hit[0],
+           "restore_s": (float(restored[1].split()[-1].rstrip("s"))
+                         if restored else None)}
+    log("daemon follower: " + json.dumps(rec))
+    return d, f"http://127.0.0.1:{port}", rec
+
+
+def follower_current(base, fbase, what, timeout_s=DAEMON_BOOT_S):
+    """Read the primary's durable frontier once, then poll the
+    follower's ``/api/replication`` until it has applied that frontier
+    with zero lag: (seconds waited, the follower's document, the
+    primary's). Polling the primary itself would journal a record a
+    request (its API self-traces), and the follower would chase them."""
+    t = time.perf_counter()
+    _, theirs = http_json(base, "/api/replication")
+    want = theirs["durableSeq"]
+    if FOLLOWER_NAME not in theirs.get("followers", {}):
+        fail(f"{what}: the primary lists no follower {FOLLOWER_NAME}: "
+             f"{theirs}")
+    while True:
+        _, mine = http_json(fbase, "/api/replication")
+        if (mine.get("lagRecords") == 0 and mine.get("error") is None
+                and mine.get("appliedSeq", -1) >= want):
+            return time.perf_counter() - t, mine, theirs
+        if time.perf_counter() - t > timeout_s:
+            fail(f"{what}: not current within {timeout_s} s: {mine} "
+                 f"{theirs}")
+        time.sleep(0.2)
+
+
 def kernel_sequence(events):
     """The ingest step kernels of a Chrome trace in start order: ``C``
     for the arena claim (its kernels merged), ``W`` the arena write,
@@ -1865,6 +1960,34 @@ def steps_in(seq, what):
         fail(f"{what}: the profiled kernels are not one claim, one write "
              f"and one flat histogram a step: {''.join(seq)}")
     return full
+
+
+def warm_profiler(base, what):
+    """Start one short ``POST /debug/profile`` on a thread, so that the
+    daemon's first profiler start is paid before a capture that must hold
+    traffic; returns a callable that waits for it and returns its
+    seconds."""
+    got = {}
+
+    def capture():
+        t = time.perf_counter()
+        got["resp"] = http_call(base + "/debug/profile?seconds=0.01", b"",
+                                timeout=300)
+        got["s"] = time.perf_counter() - t
+
+    th = threading.Thread(target=capture, daemon=True)
+    th.start()
+
+    def wait():
+        th.join(timeout=300)
+        status, _, body = got.get("resp", (None, None, b"{}"))
+        if th.is_alive() or status != 200:
+            fail(f"{what}: the profiler's warm-up capture answered {status} "
+                 f"{body[:200]!r}")
+        shutil.rmtree(json.loads(body)["profileDir"], ignore_errors=True)
+        return got["s"]
+
+    return wait
 
 
 def profile_during(base, what):
@@ -1904,7 +2027,7 @@ def daemon_path(torch, K, scale, device, boot, traffic):
     --capture-backlog 4 --wal-dir --checkpoint``, the rest at its
     defaults) and driven over its own sockets: boot A replays exactly the
     records past the snapshot and reads back what the recovered store
-    answered; four Scribe clients send two launches of spans, 100 known
+    answered; four Scribe clients send a launch of spans, 100 known
     traces and one corrupt entry (acked after the durable append) while
     ``POST /debug/profile`` captures the card, whose kernels must be one
     arena claim, one arena write and one flat histogram a step; the known
@@ -1943,6 +2066,17 @@ def daemon_path(torch, K, scale, device, boot, traffic):
              "--checkpoint", boot["ckpt"], "--checkpoint-interval", "3600"]
     if not on_card:
         flags += ["--platform", "cpu"]
+    # The standby follows boot A from a copy of the same snapshot: the
+    # primary's log begins after it, so the standby needs that base.
+    ship_port = free_port()
+    standby_ckpt = os.path.join(work, "standby-ckpt")
+    shutil.copytree(boot["ckpt"], standby_ckpt)
+    follower_flags = ["--host", "127.0.0.1", "--follow",
+                      f"127.0.0.1:{ship_port}", "--follow-mode", "standby",
+                      "--follower-name", FOLLOWER_NAME, "--checkpoint",
+                      standby_ckpt, "--checkpoint-interval", "3600"]
+    if not on_card:
+        follower_flags += ["--platform", "cpu"]
     tracegens = [(extra, subprocess.Popen(
         [sys.executable, "-m", "zipkin_tpu_torch.main.tracegen", *extra],
         cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1959,16 +2093,26 @@ def daemon_path(torch, K, scale, device, boot, traffic):
     try:
         # -- boot A: the durability snapshot plus the log's tail ---------
         d, base, scribe, out["boot_a"] = boot_daemon(
-            torch, device, flags, env, "boot A", live)
+            torch, device, flags + ["--ship-port", str(ship_port)], env,
+            "boot A", live)
+        # -- the standby follower beside it: it restores while boot A
+        # reads and takes the traffic, and catches up after ------------
+        fd, fport = spawn_follower(follower_flags, env, live)
         want = boot["records_past_snapshot"]
         if out["boot_a"]["replayed_records"] != want:
             fail(f"daemon boot A: replayed "
                  f"{out['boot_a']['replayed_records']} records, {want} lie "
                  f"past the snapshot")
+        # The daemon's first profiler start takes seconds (the card's
+        # tracing is set up then) while the route already answers 409:
+        # a capture started cold can open after the traffic it was to
+        # hold. One short capture beside the boot reads pays that start.
+        warm = warm_profiler(base, "daemon path")
         t = time.perf_counter()
         out["boot_a"]["reads_compared"] = boot_reads_equal(
             base, boot["answers"], "daemon boot A")
         out["boot_a"]["reads_s"] = time.perf_counter() - t
+        out["profiler_warmup_s"] = warm()
 
         # -- Scribe traffic, profiled in its second half ---------------------
         # The first half runs with no capture: its rate and ack tail are
@@ -1989,6 +2133,7 @@ def daemon_path(torch, K, scale, device, boot, traffic):
                                         what="daemon path")
         second_s = time.perf_counter() - t1
         cap.join(timeout=300)
+        profile_wait_s = time.perf_counter() - t1 - second_s
         status, _, body = got.get("resp", (None, None, b"{}"))
         if status != 200:
             fail(f"daemon path: /debug/profile answered {status} "
@@ -2015,6 +2160,23 @@ def daemon_path(torch, K, scale, device, boot, traffic):
         t = time.perf_counter()
         n_known = known_reads_equal(base, oracle_api, traffic["known"],
                                     "daemon path (known traces)")
+        known_s = time.perf_counter() - t
+        # -- the standby caught up: zero lag, the known traces over HTTP ---
+        fd, fbase, out["follower"] = await_follower(
+            fd, fport, follower_flags, env, live)
+        wait_s, doc, primary_doc = follower_current(base, fbase,
+                                                    "daemon follower")
+        t_f = time.perf_counter()
+        known_reads_equal(fbase, oracle_api, traffic["known"],
+                          "daemon path (standby follower)")
+        out["follower"].update({
+            "current_after_traffic_s": wait_s,
+            "known_reads_s": time.perf_counter() - t_f,
+            "applied_seq": doc["appliedSeq"],
+            "primary_durable_seq": primary_doc["durableSeq"],
+            "applied_records": doc["appliedRecords"],
+            "fetched_bytes": doc["fetchedBytes"],
+            "lag_seconds": doc["lagSeconds"]})
         out["traffic"] = {
             "spans": spans[0], "send_s": first_s,
             "scribe_spans_per_s": spans[0] / first_s,
@@ -2027,15 +2189,22 @@ def daemon_path(torch, K, scale, device, boot, traffic):
                 "ack_ms_p99": float(np.percentile(more, 99))},
             "try_later": retries + more_retries,
             "profile_s": prof["seconds"], "profile_events": len(events),
+            "profile_wait_after_send_s": profile_wait_s,
             "profiled_steps": steps, "profiled_launches": launches,
-            "known_reads": n_known, "known_reads_s": time.perf_counter() - t,
+            "known_reads": n_known, "known_reads_s": known_s,
             "collector_spans_stored": mj.get("collector.spans_stored"),
             "store_batches": mj.get("store.batches")}
         log("daemon traffic: " + json.dumps(out["traffic"]))
 
-        # -- SIGTERM: the ordered shutdown, then exit 0 ----------------------
+        # -- SIGTERM to both: the ordered shutdowns, then exit 0 -------------
         t = time.perf_counter()
+        fd.signal(signal.SIGTERM)
         d.signal(signal.SIGTERM)
+        frc = fd.wait_exit(DAEMON_EXIT_S)
+        out["follower"]["sigterm_to_exit_s"] = time.perf_counter() - t
+        if frc != 0 or any("Traceback" in line for _, line in fd.lines):
+            fail(f"daemon follower: exit {frc} after SIGTERM; its output:\n"
+                 f"{fd.tail()}")
         rc = d.wait_exit(DAEMON_EXIT_S)
         out["sigterm_to_exit_s"] = time.perf_counter() - t
         if rc != 0 or any("Traceback" in line for _, line in d.lines):
@@ -2438,6 +2607,539 @@ def fleet_path(torch, K, dev, scale, device):
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Replication: WAL shipping, a warm standby on the card, the replica
+# ---------------------------------------------------------------------------
+
+REPLICATION_IO_S = 120.0
+# The replica seals each record in host Python (~37-50 us a span,
+# PERF.md section 5): ~5 s a 114,688-span record, so it trails the
+# standby by design and its waits are sized for it.
+REPLICATION_DRAIN_S = 600.0
+REPLICATION_READ_END = 2**62
+
+
+def _timed(fn, into, sync_fn=None):
+    """``fn`` wrapped so each call appends its host seconds to ``into``
+    (after ``sync_fn`` when given: the card's work is inside)."""
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        if sync_fn is not None:
+            sync_fn()
+        into.append(time.perf_counter() - t)
+        return out
+    return timed
+
+
+def _stamped(fn, into):
+    """``fn`` wrapped so each call that returns appends the host clock
+    at its return to ``into``."""
+    def stamped(*a, **kw):
+        out = fn(*a, **kw)
+        into.append(time.perf_counter())
+        return out
+    return stamped
+
+
+def _drain(f, wal, what, timeout_s=REPLICATION_DRAIN_S):
+    """``Follower.drain`` until ``f`` has applied ``wal``'s last record
+    (a fetch that began before a drain call can end after it with
+    nothing, so one drain may return early): the seconds waited."""
+    t = time.perf_counter()
+    while True:
+        left = timeout_s - (time.perf_counter() - t)
+        if left <= 0 or not f.drain(left):
+            fail(f"{what}: not current within {timeout_s} s: {f.status()}")
+        if f.status()["appliedSeq"] >= wal.last_seq:
+            return time.perf_counter() - t
+
+
+def _three_way_reads(store, tids, mirrored):
+    """The reads a replication follower must answer as its primary does:
+    the known traces (on services of their own, past ``max_services``)
+    by id, by name and their quantiles, the service catalog and the HLL,
+    and the span-name catalog, quantiles and top-k rows of ``mirrored``
+    services (inside ``max_services``). A replica answers the last two
+    for a service past ``max_services`` from its segments (span names,
+    even past ``max_span_names``) or not at all (top-k), where a device
+    store scans its catalog, as the reference's replica does; and the
+    name lookups stay on the known services, whose answers are exact on
+    both tiers (the stream's traces are held to an oracle nowhere)."""
+    end = REPLICATION_READ_END
+    out = {"rows": store.get_spans_by_trace_ids(tids),
+           "exist": sorted(store.traces_exist(tids)),
+           "durations": store.get_traces_duration(tids),
+           "services": sorted(store.get_all_service_names()),
+           "hll": store.estimated_unique_traces()}
+    for svc in COLD_SERVICES:
+        out[svc] = (store.get_trace_ids_by_name(svc, None, end, 20),
+                    store.service_duration_quantiles(svc, [0.5, 0.95, 0.99]))
+    for svc in mirrored:
+        out[f"sketch {svc}"] = (
+            sorted(store.get_span_names(svc)),
+            store.service_duration_quantiles(svc, [0.5, 0.95, 0.99]),
+            store.top_annotations(svc), store.top_binary_keys(svc))
+    out["by_span_name"] = store.get_trace_ids_by_name(
+        COLD_SERVICES[1], COLD_OPS[3], end, 20)
+    out["by_annotation"] = store.get_trace_ids_by_annotation(
+        COLD_SERVICES[2], "http.uri", b"/api/widgets", end, 20)
+    return out
+
+
+def _lineage_of_followers(store, wal, what):
+    """Every sampled record's trace, read back from the primary, holds
+    a ``ship`` child for each follower and the ``standby apply`` and
+    ``replica apply`` children the followers backhauled, all under the
+    record's root."""
+    from zipkin_tpu_torch.wal.record import unit_meta
+
+    sampled = [(seq, int(m["b3"][0]), int(m["b3"][1]))
+               for seq, m in ((s, unit_meta(p)) for s, p in wal.replay(0))
+               if "b3" in m]
+    if not sampled:
+        fail(f"{what}: no record was sampled")
+    want = ["ingest unit", "replica apply", "ship", "ship",
+            "standby apply", "wal append", "wal fsync"]
+    for seq, tid, sid in sampled:
+        trace = (store.get_spans_by_trace_ids([tid]) or [[]])[0]
+        names = sorted(s.name for s in trace)
+        if names != want:
+            fail(f"{what}: the trace of record {seq} holds {names}")
+        for s in trace:
+            if s.name != "ingest unit" and s.parent_id != sid:
+                fail(f"{what}: {s.name} of record {seq} has parent "
+                     f"{s.parent_id}, not the root {sid}")
+        ships = sorted(dict((b.key, b.value) for b in s.binary_annotations)
+                       .get("follower", "") for s in trace
+                       if s.name == "ship")
+        if ships != ["replica", "standby"]:
+            fail(f"{what}: record {seq} was shipped to {ships}")
+    return len(sampled)
+
+
+def replication_path(torch, K, dev, scale, device):
+    """Replication at full width on the daemon's default store (the
+    window on): a primary on the card with a WAL at the daemon's fsync
+    interval and lineage at 1 in 64 serves a ``ShipServer`` on
+    127.0.0.1; a warm standby on the same card (a second store built
+    from HELLO's config, replaying every shipped record through the
+    commit body and so through K1 and both K2 halves) and a device-free
+    replica (host-only by the reference's design) follow it. Four
+    journaled launches and 100 known traces, then both drained: the
+    standby's state equals the primary's (moments within stated
+    tolerance 2), the replica's mirror equals the primary's device
+    aggregates bitwise, the reads agree three ways, every standby step
+    launched each kernel once, and each sampled record's trace holds
+    ``ship`` and the followers' apply children. Then the ship server is
+    closed and rebound with both connections dropped (both followers
+    reconnect without an anchor), the standby is promoted and takes one
+    launch, and a late replica whose cursor precedes the retained log
+    bootstraps from an anchor equal to the primary's mirror."""
+    import socket
+
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.obs import fleet as fobs
+    from zipkin_tpu_torch.replicate import (Follower, ReplicaTarget,
+                                            ShipClient, ShipServer,
+                                            StandbyTarget, WalShipper)
+    from zipkin_tpu_torch.replicate.protocol import config_from_dict
+    from zipkin_tpu_torch.store import replica as replica_mod
+    from zipkin_tpu_torch.store.replica import ReplicaSpanStore
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.testing.crash import state_mismatches
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+    from zipkin_tpu_torch.wal import WriteAheadLog
+
+    t_phase = time.perf_counter()
+    cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
+    free_card(torch, device)
+    work = tempfile.mkdtemp(prefix="zipkin-replication-")
+    closers = []
+    seal_orig = replica_mod.seal_segment
+    out = {"spans_per_launch": scale.batch_traces * 7}
+    what = "replication path"
+
+    def card_sync():
+        sync(torch, device)
+
+    try:
+        reg = obs.Registry()
+        primary = TorchSpanStore(cfg, device=device.type, registry=reg)
+        # The daemon's log defaults and its lineage cadence (1 in 64).
+        wal = WriteAheadLog(os.path.join(work, "wal"), fsync="interval",
+                            interval_s=0.05, segment_bytes=64 << 20,
+                            registry=reg)
+        closers.append(wal.close)
+        primary.attach_wal(wal)
+        tracker = fobs.LineageTracker(primary.apply, registry=reg)
+        primary.attach_lineage(tracker)
+        # Seen durable callbacks: the group-commit thread emits a unit's
+        # ``wal fsync`` span after the frontier moves (and the followers
+        # may fetch before it does), so the lineage flush below waits
+        # for the callback of the last record.
+        durable_seen = []
+
+        def observed(seq):
+            tracker.on_durable(seq)
+            durable_seen.append(seq)
+
+        wal.set_on_durable(observed)
+        shipper = WalShipper(primary, registry=reg, tracker=tracker)
+        closers.append(shipper.close)
+        servers = [ShipServer(shipper, "127.0.0.1", 0,
+                              io_timeout_s=REPLICATION_IO_S)]
+        servers[0].serve_in_thread()
+        port = servers[0].server_address[1]
+        closers.append(lambda: [(s.shutdown(), s.server_close())
+                                for s in servers])
+
+        def follow(name, mode, target_of):
+            freg = obs.Registry()
+            client = ShipClient("127.0.0.1", port, name, mode=mode,
+                                timeout_s=REPLICATION_IO_S)
+            config = config_from_dict(client.connect()["config"])
+            if config != cfg:
+                fail(f"{what}: HELLO's config {config} is not the "
+                     f"primary's")
+            target = target_of(config)
+            f = Follower(target, client, poll_interval_s=0.005,
+                         registry=freg,
+                         lineage=fobs.FollowerLineage(name, mode=mode,
+                                                      registry=freg))
+            closers.append(f.close)
+            fetches = []
+
+            def timed_fetch(*a, _fetch=client.fetch, **kw):
+                t = time.perf_counter()
+                got = _fetch(*a, **kw)
+                if got and got[0]:
+                    fetches.append((time.perf_counter() - t, len(got[0]),
+                                    sum(len(p) for _, p in got[0])))
+                return got
+
+            client.fetch = timed_fetch
+            return f, freg, fetches
+
+        # -- the standby on the card and the replica on the host ----------
+        standby_apply_s = []
+        standby = None
+
+        def standby_target(config):
+            nonlocal standby
+            standby = TorchSpanStore(config, device=device.type,
+                                     registry=obs.Registry())
+            target = StandbyTarget(standby)
+            target.apply = _timed(target.apply, standby_apply_s, card_sync)
+            return target
+
+        replica_apply_s, replica_seal_s = [], []
+        replica = None
+
+        def replica_target(config):
+            nonlocal replica
+            replica = ReplicaSpanStore(config, background_compaction=False,
+                                       registry=obs.Registry())
+            closers.append(replica.close)
+            target = ReplicaTarget(replica)
+            target.apply = _timed(target.apply, replica_apply_s)
+            replica.codec.decode = _timed(replica.codec.decode,
+                                          replica_seal_s)
+            return target
+
+        replica_mod.seal_segment = _timed(seal_orig, replica_seal_s)
+        f_sby, sreg, sby_fetches = follow("standby", "standby",
+                                          standby_target)
+        f_rep, rreg, rep_fetches = follow("replica", "replica",
+                                          replica_target)
+        replica_fold_s = timed_mirror(replica)
+        K.reset_launches()
+        f_sby.start()
+        f_rep.start()
+
+        # -- traffic: four journaled launches and the known traces --------
+        gen = ColumnarTraceGen(primary.dicts, n_services=scale.services,
+                               n_span_names=scale.names, topology=True,
+                               seed=37)
+        n = scale.replication_launches
+        known = cold_known(scale.cold_known, 47,
+                           WIN_BASE_US + (n + 1) * WIN_STEP_US)
+        tids = sorted(tr[0].trace_id for tr in known)
+        t = time.perf_counter()
+        for i in range(n):
+            batch, _, ix = gen.next_batch(
+                scale.batch_traces, base_ts=WIN_BASE_US + i * WIN_STEP_US)
+            primary.write_batch(batch, ix)
+        card_sync()
+        out["primary_write_s"] = time.perf_counter() - t
+        primary.apply([s for tr in known for s in tr])
+        primary.wal_sync()
+        t_written = time.perf_counter()
+        out["standby_drain_s"] = _drain(f_sby, wal, f"{what} (standby)")
+        out["standby_visible_s"] = time.perf_counter() - t_written
+        out["replica_drain_s"] = _drain(f_rep, wal, f"{what} (replica)")
+        out["replica_visible_s"] = time.perf_counter() - t_written
+        # The followers' apply spans came back on their last fetches;
+        # flush them (one more record) once the last unit's fsync span is
+        # out, and let both apply it.
+        deadline = time.perf_counter() + REPLICATION_IO_S
+        while not (durable_seen and durable_seen[-1] >= wal.last_seq):
+            if time.perf_counter() > deadline:
+                fail(f"{what}: durable callbacks stuck at "
+                     f"{durable_seen[-1:]} with {wal.last_seq} records")
+            time.sleep(0.01)
+        tracker.flush()
+        primary.wal_sync()
+        _drain(f_sby, wal, f"{what} (standby)")
+        _drain(f_rep, wal, f"{what} (replica)")
+        card_sync()
+
+        # -- the checks ---------------------------------------------------
+        last = wal.last_seq
+        for f, name in ((f_sby, "standby"), (f_rep, "replica")):
+            st = f.status()
+            if st["appliedSeq"] != last or st["lagRecords"] or st["error"]:
+                fail(f"{what}: the {name} is not at seq {last}: {st}")
+        primary_steps = primary.counter_block()["batches"]
+        standby_steps = standby.counter_block()["batches"]
+        launches = dict(K.LAUNCHES)
+        if standby_steps != primary_steps:
+            fail(f"{what}: the standby took {standby_steps} steps for "
+                 f"the primary's {primary_steps}")
+        kernels = ("flat_histogram", "arena_claim", "arena_write")
+        if device.type == "cuda" and any(
+                launches[k] != primary_steps + standby_steps
+                for k in kernels):
+            fail(f"{what}: {launches} launches for {primary_steps} primary "
+                 f"and {standby_steps} standby steps, not one of each "
+                 f"kernel a step")
+        if device.type == "cuda" and launches["paged_page_gather"]:
+            fail(f"{what}: a ring store launched the page gather")
+        # The standby's share: the launches less the primary's steps.
+        out["kernel_launches"] = {
+            k: (v - primary_steps if device.type == "cuda" and k in kernels
+                else v)
+            for k, v in launches.items()}
+        out["ingest_steps"] = standby_steps
+        if standby.counters()["scatter_path_pallas"] != 1.0:
+            fail(f"{what}: the standby's steps took the plain route")
+        t = time.perf_counter()
+        bad = state_mismatches(primary.state, standby.state,
+                               moments_tolerance=True)
+        if bad:
+            fail(f"{what}: the standby's state differs from the "
+                 f"primary's: {bad}")
+        if standby.counter_block() != primary.counter_block():
+            fail(f"{what}: the standby's counter block differs")
+        for name, got in zip(WINDOW_LEAVES, replica.sketch_mirror.arrays()):
+            leaf = primary.state.leaves[name].cpu().numpy()
+            if got.dtype != leaf.dtype or not np.array_equal(got, leaf):
+                fail(f"{what}: the replica's mirror {name} differs from "
+                     f"the primary's device leaf")
+        out["state_compare_s"] = time.perf_counter() - t
+        replica_split = (sum(replica_apply_s), sum(replica_fold_s),
+                         sum(replica_seal_s), len(replica_apply_s),
+                         replica.counters()["replica_spans_applied"])
+        t = time.perf_counter()
+        mirrored = sorted(
+            svc for svc in primary.get_all_service_names()
+            if primary._svc_id(svc) < cfg.max_services)[:4]
+        want = _three_way_reads(primary, tids, mirrored)
+        out["reads_s"] = {"primary": time.perf_counter() - t}
+        if not all(want[f"sketch {svc}"][2] for svc in mirrored):
+            fail(f"{what}: no top annotations to compare")
+        for name, store in (("standby", standby), ("replica", replica)):
+            t = time.perf_counter()
+            got = _three_way_reads(store, tids, mirrored)
+            out["reads_s"][name] = time.perf_counter() - t
+            for k, v in want.items():
+                if got[k] != v:
+                    fail(f"{what}: the {name}'s {k} differs from the "
+                         f"primary's: {str(got[k])[:1500]} against "
+                         f"{str(v)[:1500]}")
+        if not want["rows"] or not any(want[s][0] for s in COLD_SERVICES):
+            fail(f"{what}: the reads compared nothing")
+        out["sampled_records"] = _lineage_of_followers(primary, wal, what)
+
+        # -- what moved -------------------------------------------------------
+        def shipped(fetches):
+            secs = sum(s for s, _, _ in fetches)
+            recs = sum(r for _, r, _ in fetches)
+            nbytes = sum(b for _, _, b in fetches)
+            return {"records": recs, "bytes": nbytes, "fetch_s": secs,
+                    "records_per_s": recs / secs,
+                    "mb_per_s": nbytes / secs / 1e6}
+
+        def lag(freg):
+            p50, p99 = freg.get(
+                "zipkin_replication_visible_lag_seconds").quantile_values(
+                    [0.5, 0.99])
+            return {"p50_s": p50, "p99_s": p99}
+
+        applied_spans = standby.counter_block()["spans_seen"]
+        apply_s, fold_s, seal_s, records, rep_spans = replica_split
+        out.update({
+            "records": last, "wal_bytes": wal.stats()["wal_bytes"],
+            "shipped": {"standby": shipped(sby_fetches),
+                        "replica": shipped(rep_fetches)},
+            "visible_lag": {"standby": lag(sreg), "replica": lag(rreg)},
+            "primary_write_spans_per_s": (
+                n * scale.batch_traces * 7 / out["primary_write_s"]),
+            "standby_apply_s": sum(standby_apply_s),
+            "standby_apply_spans_per_s": (applied_spans
+                                          / sum(standby_apply_s)),
+            "replica_records": records, "replica_spans": rep_spans,
+            "replica_apply_s_per_record": apply_s / records,
+            "replica_mirror_fold_s_per_record": fold_s / records,
+            "replica_seal_s_per_record": seal_s / records,
+            "replica_apply_us_per_span": apply_s / rep_spans * 1e6,
+        })
+        log(f"{what}: " + json.dumps(out))
+
+        # -- the ship server closed and rebound, both connections lost -----
+        anchors = shipper.c_anchors.value
+        reconnects = {"standby": [], "replica": []}
+        for f, name in ((f_sby, "standby"), (f_rep, "replica")):
+            f.client.connect = _stamped(f.client.connect, reconnects[name])
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        servers.clear()
+        for f in (f_sby, f_rep):
+            sock = f.client._sock
+            if sock is not None:
+                try:
+                    sock.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass  # the follower closed it first
+        # One record journaled while the endpoint is down: 20 more known
+        # traces (a small record, so the replica's seal does not hide
+        # the reconnect).
+        late = cold_known(DAEMON_LATE_KNOWN, 53,
+                          WIN_BASE_US + (n + 2) * WIN_STEP_US)
+        primary.apply([s for tr in late for s in tr])
+        primary.wal_sync()
+        t = time.perf_counter()
+        servers.append(ShipServer(shipper, "127.0.0.1", port,
+                                  io_timeout_s=REPLICATION_IO_S))
+        servers[0].serve_in_thread()
+        caught_up = {}
+        for f, name in ((f_sby, "standby"), (f_rep, "replica")):
+            _drain(f, wal, f"{what} ({name}, reconnected)")
+            caught_up[name] = time.perf_counter() - t
+        if (shipper.c_anchors.value != anchors
+                or f_sby.status()["appliedSeq"] != wal.last_seq
+                or f_rep.status()["appliedSeq"] != wal.last_seq):
+            fail(f"{what}: after the reconnect {f_sby.status()} "
+                 f"{f_rep.status()}, anchors {shipper.c_anchors.value}")
+        for name, seen in reconnects.items():
+            if not seen:
+                fail(f"{what}: the {name} never reconnected")
+        late_ids = sorted(tr[0].trace_id for tr in late)
+        want_late = primary.get_spans_by_trace_ids(late_ids)
+        if len(want_late) != len(late) or any(
+                store.get_spans_by_trace_ids(late_ids) != want_late
+                for store in (standby, replica)):
+            fail(f"{what}: the traces journaled while the endpoint was "
+                 f"down do not read back alike on both followers")
+        # Seconds from the rebind to each follower's next HELLO, and to
+        # its applying the launch journaled while the endpoint was down.
+        out["reconnect_s"] = {name: seen[0] - t
+                              for name, seen in reconnects.items()}
+        out["caught_up_s"] = caught_up
+
+        # -- promotion: the standby owns writes ---------------------------
+        t = time.perf_counter()
+        promoted = f_sby.promote()
+        out["promote_s"] = time.perf_counter() - t
+        if promoted is not standby:
+            fail(f"{what}: promote() handed back another store")
+        wal2 = WriteAheadLog(os.path.join(work, "wal-promoted"),
+                             fsync="interval", interval_s=0.05,
+                             segment_bytes=64 << 20, registry=obs.Registry())
+        closers.append(wal2.close)
+        promoted.attach_wal(wal2)
+        steps = promoted.counter_block()["batches"]
+        pgen = ColumnarTraceGen(promoted.dicts, n_services=scale.services,
+                                n_span_names=scale.names, topology=True,
+                                seed=41)
+        t = time.perf_counter()
+        batch, _, ix = pgen.next_batch(
+            scale.batch_traces, base_ts=WIN_BASE_US + (n + 3) * WIN_STEP_US)
+        promoted.write_batch(batch, ix)
+        promoted.wal_sync()
+        card_sync()
+        out["promoted_write_s"] = time.perf_counter() - t
+        if (promoted.counter_block()["batches"] != steps + 1
+                or wal2.last_seq != 1):
+            fail(f"{what}: the promoted store's launch made "
+                 f"{promoted.counter_block()['batches'] - steps} steps and "
+                 f"{wal2.last_seq} records")
+        # Decommission the standby: its retention pin goes.
+        shipper.drop_follower("standby")
+
+        # -- a late replica bootstraps from an anchor ---------------------
+        dropped = wal.truncate(wal.last_seq)
+        if wal.first_available_seq() <= 1:
+            fail(f"{what}: truncation kept the whole log ({dropped} "
+                 f"segments dropped)")
+        late_anchor = []
+
+        def sized_anchor_frame(_anchor=shipper.anchor):
+            t0 = time.perf_counter()
+            frame = _anchor()
+            late_anchor.append((time.perf_counter() - t0, len(frame)))
+            return frame
+
+        shipper.anchor = sized_anchor_frame
+        late = ReplicaSpanStore(cfg, background_compaction=False,
+                                registry=obs.Registry())
+        closers.append(late.close)
+        late_client = ShipClient("127.0.0.1", port, "late", mode="replica",
+                                 timeout_s=REPLICATION_IO_S)
+        late_client.connect()
+        f_late = Follower(ReplicaTarget(late), late_client,
+                          registry=obs.Registry())
+        closers.append(f_late.close)
+        frames = []
+        late_client.anchor = _timed(late_client.anchor, frames)
+        t = time.perf_counter()
+        if f_late.step() is not True:
+            fail(f"{what}: the late replica's first fetch applied nothing")
+        bootstrap_s = time.perf_counter() - t
+        if len(frames) != 1 or len(late_anchor) != 1 \
+                or late.applied_seq() != wal.last_seq:
+            fail(f"{what}: the late replica did not bootstrap from an "
+                 f"anchor ({late.applied_seq()} of {wal.last_seq})")
+        for name, got, want_a in zip(WINDOW_LEAVES,
+                                     late.sketch_mirror.arrays(),
+                                     primary.ensure_sketch_mirror().arrays()):
+            if not np.array_equal(got, want_a):
+                fail(f"{what}: the anchored replica's {name} differs")
+        if late.estimated_unique_traces() != \
+                primary.estimated_unique_traces():
+            fail(f"{what}: the anchored replica's HLL differs")
+        out["anchor"] = {
+            "bootstrap_s": bootstrap_s,
+            "serve_s": late_anchor[0][0], "frame_bytes": late_anchor[0][1],
+            "rpc_s": frames[0], "segments_dropped": dropped,
+            "first_available_seq": wal.first_available_seq()}
+        out["s"] = time.perf_counter() - t_phase
+        log(f"{what} result: " + json.dumps(out))
+        return out
+    finally:
+        replica_mod.seal_segment = seal_orig
+        errors = []
+        for fn in reversed(closers):
+            try:
+                fn()
+            except Exception as e:  # close the others, then raise it
+                errors.append(e)
+        shutil.rmtree(work, ignore_errors=True)
+        if errors:
+            raise errors[0]
 
 
 def durability_paged(torch, K, dev, scale, device):
@@ -5260,7 +5962,7 @@ def _check_states_equal(a, b, what):
 
 def parity_phase(torch, dev, scale, rehearse: bool, paged: bool):
     """The same stream at reduced depth, with the windowed arena on
-    (three buckets a batch: the slot ring laps), on the card (kernels)
+    (four buckets a batch: the slot ring laps), on the card (kernels)
     and on the CPU (plain twins): equal states, equal sketch mirrors
     (each equal to its device leaves) and, paged, equal planner
     snapshots. Then the same spans through ``apply``: pipelined on the
@@ -5416,6 +6118,8 @@ def main() -> int:
     daemon = phase("daemon_path", daemon_path, torch, K, scale, device,
                    boot, daemon_traffic)
     fleet = phase("fleet_path", fleet_path, torch, K, dev, scale, device)
+    repl = phase("replication_path", replication_path, torch, K, dev, scale,
+                 device)
     dpaged = phase("durability_paged", durability_paged, torch, K, dev,
                    scale, device)
     phase("crash_kill_points", crash_kill_points, torch, device)
@@ -5434,7 +6138,8 @@ def main() -> int:
                "query": query["kernel_launches"],
                "http": query["http"]["kernel_launches"],
                "fleet": fleet["kernel_launches"],
-               "daemon": daemon["kernel_launches"]}
+               "daemon": daemon["kernel_launches"],
+               "replication": repl["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -5447,7 +6152,8 @@ def main() -> int:
                      "query": query["ingest_steps"],
                      "http": query["http"]["ingest_steps"],
                      "fleet": fleet["ingest_steps"],
-                     "daemon": daemon["ingest_steps"]}
+                     "daemon": daemon["ingest_steps"],
+                     "replication": repl["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",

@@ -1009,3 +1009,85 @@ def test_cuda_build_app_platform_cpu_builds_a_cpu_store(cuda):
         for collector, api in built:
             collector.close()
             api.query.close()
+
+
+# -- replication on the card -------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_standby_and_replica_follow_a_card_primary(cuda, tmp_path):
+    """A card primary ships its log over 127.0.0.1 to a warm standby on
+    the card and a device-free replica: the drained standby's state
+    equals the primary's (integer leaves bitwise, moments by stated
+    tolerance 2), the replica's mirror equals the primary's device
+    aggregates bitwise, and every standby step took the kernel route:
+    K1 and both K2 halves once a step (the replica launches nothing)."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.replicate import (Follower, ReplicaTarget,
+                                            ShipClient, ShipServer,
+                                            StandbyTarget, WalShipper)
+    from zipkin_tpu_torch.replicate.protocol import config_from_dict
+    from zipkin_tpu_torch.store.convert import state_to_numpy
+    from zipkin_tpu_torch.store.replica import ReplicaSpanStore
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.testing.crash import state_mismatches
+    from zipkin_tpu_torch.wal import WriteAheadLog
+
+    primary = _window_store(device="cuda", registry=obs.Registry())
+    wal = WriteAheadLog(str(tmp_path / "wal"), fsync="off",
+                        registry=obs.Registry())
+    primary.attach_wal(wal)
+    for spans in _window_applies():
+        primary.apply(spans)
+    wal.sync()
+    torch.cuda.synchronize()
+    server = ShipServer(WalShipper(primary, registry=obs.Registry()),
+                        host="127.0.0.1", port=0, io_timeout_s=30.0)
+    server.serve_in_thread()
+    port = server.server_address[1]
+    closers = [wal.close, lambda: (server.shutdown(), server.server_close())]
+    try:
+        sby_client = ShipClient("127.0.0.1", port, "sby", mode="standby",
+                                timeout_s=30.0)
+        config = config_from_dict(sby_client.connect()["config"])
+        assert config == primary.config and config.use_pallas
+        standby = TorchSpanStore(config, device="cuda",
+                                 registry=obs.Registry())
+        replica = ReplicaSpanStore(config, background_compaction=False,
+                                   registry=obs.Registry())
+        closers.append(replica.close)
+        K.reset_launches()
+        followers = [
+            Follower(StandbyTarget(standby), sby_client,
+                     poll_interval_s=0.002, registry=obs.Registry()),
+            Follower(ReplicaTarget(replica),
+                     ShipClient("127.0.0.1", port, "rep", timeout_s=30.0),
+                     poll_interval_s=0.002, registry=obs.Registry())]
+        closers += [f.close for f in followers]
+        for f in followers:
+            f.start()
+        for f in followers:
+            assert f.drain(120.0), f.status()
+        torch.cuda.synchronize()
+        steps = standby.counter_block()["batches"]
+        assert steps == primary.counter_block()["batches"] > 0
+        assert {k: K.LAUNCHES[k] for k in (
+            "flat_histogram", "arena_claim", "arena_write")} == {
+            "flat_histogram": steps, "arena_claim": steps,
+            "arena_write": steps}
+        assert standby.counters()["scatter_path_pallas"] == 1.0
+        assert state_mismatches(primary.state, standby.state,
+                                moments_tolerance=True) == {}
+        leaves = state_to_numpy(primary.state)
+        for name, got in zip((
+                "svc_hist", "ann_svc_counts", "name_presence",
+                "ann_value_counts", "bann_key_counts", "hll_traces",
+                "win_epoch", "win_counts", "win_sums", "win_mm"),
+                replica.sketch_mirror.arrays()):
+            np.testing.assert_array_equal(leaves[name], got, err_msg=name)
+        assert (replica.estimated_unique_traces()
+                == standby.estimated_unique_traces()
+                == primary.estimated_unique_traces())
+    finally:
+        for fn in reversed(closers):
+            fn()

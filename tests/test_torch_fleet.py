@@ -4,10 +4,10 @@ package's, on the CPU.
 
 The first half ports ``tests/test_fleet.py`` onto the port: the wire
 codec, the lineage tracker, the follower half, federation, the flight
-recorder, the watchdog and the API's fleet routes. The four reference
-cases that need the dispatcher or the ship protocol
-(``TestDispatcherSpanSink``, ``TestLiveFleetTrace``) wait for those
-slices.
+recorder, the watchdog and the API's fleet routes. The three reference
+cases that need the dispatcher (``TestDispatcherSpanSink``) wait for
+the sharding slice; ``TestLiveFleetTrace`` runs on the port in
+``tests/test_torch_replication.py`` (slow lane, as the reference's).
 
 The second half holds the port against the reference with pinned clocks
 and seeded id generators: tracker span lists, the follower's backhauled

@@ -72,9 +72,20 @@ def test_package_imports_without_jax():
             "zipkin_tpu_torch.query.request, zipkin_tpu_torch.query.adjusters, "
             "zipkin_tpu_torch.query.coalesce, zipkin_tpu_torch.query.engine, "
             "zipkin_tpu_torch.query.service, zipkin_tpu_torch.api, "
-            "zipkin_tpu_torch.api.query_extractor; "
+            "zipkin_tpu_torch.api.query_extractor, "
+            "zipkin_tpu_torch.concurrency, zipkin_tpu_torch.replicate, "
+            "zipkin_tpu_torch.replicate.protocol, "
+            "zipkin_tpu_torch.replicate.ship, "
+            "zipkin_tpu_torch.replicate.follow, "
+            "zipkin_tpu_torch.store.replica; "
             "from zipkin_tpu_torch.store.torch_store import TorchSpanStore; "
             "from zipkin_tpu_torch.store.archive import TieredSpanStore; "
+            "from zipkin_tpu_torch.replicate import Follower, ReplicaTarget, "
+            "ShipClient, ShipProtocolError, ShipServer, StandbyTarget, "
+            "WalShipper; "
+            "from zipkin_tpu_torch.store.replica import ReplicaSpanStore, "
+            "ReplicaReadOnlyError, concat_batch_parts; "
+            "from zipkin_tpu_torch.concurrency import RWLock; "
             "from zipkin_tpu_torch.store.device import "
             "recompute_dep_moments, dep_link_moments; "
             "assert TorchSpanStore.write_thrift and "
@@ -147,6 +158,8 @@ def test_daemon_imports_without_jax():
             "from zipkin_tpu_torch.store.torch_store import TorchSpanStore; "
             "assert example.build_app and example.shutdown and "
             "example.serve_until and tracegen.run; "
+            "assert example.build_follower_app and example.start_follower "
+            "and example.follow_until and example.follower_shutdown; "
             "assert census.LOWERING_TABLE and TorchSpanStore.step_census")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

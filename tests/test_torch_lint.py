@@ -4,7 +4,10 @@ the port, ``zipkin_tpu_torch/``, against an empty baseline.
 The port keeps the reference's lock conventions: every lock declares
 its rank with ``# lock-order: <rank>`` (the store's encode lock 10,
 capture 30, commit 40, the sealed-frontier leaf 45, the WAL 60, the
-pipeline stage 65, the fleet tracker 82), every ``# guarded-by:`` field
+pipeline stage 65, the fleet tracker 82; replication's as the reference
+ranks them: the replica's apply lock 12 and its readers/writer lock 40,
+the lock's own condition 42, the shipper's followers 79, the follower's
+stats 80), every ``# guarded-by:`` field
 is read under its lock or suppressed with a reason, and the acquisition
 graph has no cycle and no inverted edge. Any finding fails; there is no
 baseline to hide one in.
@@ -57,6 +60,12 @@ def test_every_port_lock_is_ranked(project):
     assert ranks["WriteAheadLog._cond"] == 60
     assert ranks["_StageBase._cond"] == 65
     assert ranks["LineageTracker._lock"] == 82
+    # Replication, ranked as the reference ranks them.
+    assert ranks["ReplicaSpanStore._lock"] == 12
+    assert ranks["ReplicaSpanStore._rw"] == 40
+    assert ranks["RWLock._cond"] == 42
+    assert ranks["WalShipper._lock"] == 79
+    assert ranks["Follower._lock"] == 80
 
 
 def test_port_lock_graph_sees_the_write_path(project):

@@ -17,8 +17,11 @@ routes are live when a ``FleetObs`` (``obs/fleet.py``) is passed as
 probe fails, with its reasons), ``/api/fleet`` the roles and merged
 lineage sketches, ``/debug/events`` the flight recorder, and
 ``/metrics?fleet=1`` the federated scrape; with ``fleet=None`` each
-answers as a single process. ``/api/replication`` answers ``{"role":
-"none"}`` until replication is ported.
+answers as a single process. ``/api/replication`` answers the
+``replication`` callable's status: a primary's ``WalShipper.status``
+(its followers' cursors, acks and lag) or a follower's
+``Follower.status`` (its applied sequence and lag); ``{"role": "none"}``
+when none is wired.
 """
 
 from __future__ import annotations

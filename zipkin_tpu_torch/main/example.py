@@ -5,12 +5,20 @@ Usage:
         [--sample-rate 1.0] [--adaptive-target N] [--checkpoint DIR]
         [--memory-store] [--platform cpu]
 
+    python -m zipkin_tpu_torch.main.example --wal-dir DIR --ship-port 9412
+    python -m zipkin_tpu_torch.main.example --follow HOST:9412
+        [--follow-mode replica|standby] [--checkpoint DIR]
+
 The port's copy of ``zipkin_tpu/main/example.py``: the same flags and
 defaults, on the port's modules. The device store lives on the card
 (CUDA) unless ``--platform cpu`` puts it on the CPU; without a card the
-daemon raises rather than fall back. Flags whose modules are not ported
-yet (``--shards``, ``--ship-port``, ``--follow``) refuse with a
-``SystemExit`` naming the ROADMAP item they wait for.
+daemon raises rather than fall back. ``--ship-port`` serves the WAL to
+replication followers; ``--follow`` runs a follower instead of a
+collector: a warm standby (a device store, on the card like a primary's,
+replaying every shipped record through the ingest step's kernels) or a
+device-free replica (host-only by design). ``--shards`` is not ported
+yet and refuses with a ``SystemExit`` naming the ROADMAP item it waits
+for.
 
 Reference shape: zipkin-example's Main (scribe receiver + store + query
 + web in one process) and zipkin-deployment-collector's sampler wiring.
@@ -131,27 +139,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wal-retain-bytes", type=int, default=0,
                    help="shipping retention floor: keep at least this "
                         "many newest WAL bytes on disk even when a "
-                        "checkpoint covers them (0 = truncate "
-                        "everything covered)")
+                        "checkpoint covers them, so reconnecting "
+                        "followers catch up from the log instead of "
+                        "re-anchoring (0 = truncate everything "
+                        "covered; registered follower cursors always "
+                        "pin regardless)")
     p.add_argument("--ship-port", type=int, default=0,
                    help="serve sealed WAL records to replication "
                         "followers on this framed-TCP port (0 "
-                        "disables); not ported yet: any other value "
-                        "refuses (ROADMAP Queue 1, item 5)")
+                        "disables; requires --wal-dir)")
     p.add_argument("--follow", default=None, metavar="HOST:PORT",
                    help="run as a replication follower of the primary "
-                        "at HOST:PORT; not ported yet: refuses (ROADMAP "
-                        "Queue 1, item 5)")
+                        "at HOST:PORT instead of a collector daemon: "
+                        "no ingest ports open, reads serve from the "
+                        "replicated store, staleness is exposed at "
+                        "/api/replication")
     p.add_argument("--follow-mode", default="replica",
                    choices=("replica", "standby"),
-                   help="follower role (with --follow): 'replica' = "
-                        "device-free read replica; 'standby' = full "
-                        "device store ready for failover")
+                   help="follower role: 'replica' = device-free read "
+                        "replica (SketchMirror + cold segments on the "
+                        "host, no device); 'standby' = full device "
+                        "store (on --platform's device) replaying "
+                        "through the normal commit body, ready for "
+                        "failover")
     p.add_argument("--follow-poll-ms", type=float, default=20.0,
-                   help="follower fetch-poll cadence (with --follow)")
+                   help="follower fetch-poll cadence when the primary "
+                        "has nothing new (each fetch is also the ack "
+                        "that advances the primary's retention pin)")
     p.add_argument("--follower-name", default=None,
                    help="stable follower identity for the primary's "
-                        "cursor registry (with --follow)")
+                        "cursor registry (default: <mode>-<hostname> — "
+                        "STABLE across restarts, so a restarted "
+                        "follower reuses its retention pin instead of "
+                        "leaking a dead one; set explicitly when "
+                        "running several same-mode followers per host)")
     p.add_argument("--query-window-ms", type=float, default=None,
                    help="resident query executor micro-batch window "
                         "(ms): how long an idle-entry request waits "
@@ -178,14 +199,6 @@ def refuse_unported(args) -> None:
         raise SystemExit(
             "--shards: the sharded store and its group-commit log are "
             "not ported yet (ROADMAP Queue 1, item 6: sharding)")
-    if args.ship_port:
-        raise SystemExit(
-            "--ship-port: WAL shipping to followers is not ported yet "
-            "(ROADMAP Queue 1, item 5: replication)")
-    if args.follow:
-        raise SystemExit(
-            "--follow: replication followers are not ported yet "
-            "(ROADMAP Queue 1, item 5: replication)")
 
 
 def build_app(args):
@@ -196,6 +209,11 @@ def build_app(args):
     from zipkin_tpu_torch.sampler.core import Sampler
 
     refuse_unported(args)
+    if args.ship_port and not args.wal_dir:
+        # Refused before anything is built (the reference refuses once
+        # the store is up; the message is its own).
+        raise SystemExit("--ship-port requires --wal-dir (sealed "
+                         "WAL records are what gets shipped)")
     if args.checkpoint and args.memory_store:
         raise SystemExit(
             "--checkpoint requires a device store (the in-memory "
@@ -307,16 +325,18 @@ def build_app(args):
         self_trace=not args.no_self_trace_ingest,
         pipeline_depth=args.pipeline_depth,
     )
-    fleet = None
+    tracker = None
+    watchdog = None
+    recorder = None
     if not args.no_fleet_obs:
         from zipkin_tpu_torch import obs
         from zipkin_tpu_torch.obs import fleet as fobs
 
         reg = obs.default_registry()
         # Batch-lineage tracing: spans land through store.apply so they
-        # live in the system's own store (and ride the WAL like any
-        # span). attach_lineage is a no-op journal-wise until a WAL is
-        # attached.
+        # live in the system's own store (and ride the WAL/ship path
+        # like any span). attach_lineage is a no-op journal-wise until
+        # a WAL is attached.
         tracker = fobs.LineageTracker(
             store.apply, registry=reg,
             sample_every=args.lineage_sample_every or None)
@@ -336,16 +356,133 @@ def build_app(args):
         if disp is not None:
             watchdog.add_probe("dispatcher",
                                fobs.dispatcher_stuck_probe(disp))
+    shipper = None
+    if args.ship_port:
+        from zipkin_tpu_torch.replicate import WalShipper
+
+        shipper = WalShipper(store, tracker=tracker)
+        if watchdog is not None:
+            def _worst_follower_lag():
+                st = shipper.status()
+                lags = [f["lagRecords"]
+                        for f in st.get("followers", {}).values()]
+                return {"lagRecords": max(lags) if lags else 0}
+
+            watchdog.add_probe(
+                "follower_lag",
+                fobs.follower_lag_probe(_worst_follower_lag))
+    fleet = None
+    if not args.no_fleet_obs:
         fleet = fobs.FleetObs(
-            role="primary", registry=reg, tracker=tracker,
-            watchdog=watchdog, recorder=recorder)
+            role="primary", registry=reg,
+            tracker=tracker, watchdog=watchdog, recorder=recorder,
+            remote_sources=(shipper.fleet_sources
+                            if shipper is not None else None),
+            replication=(shipper.status
+                         if shipper is not None else None),
+        )
     window_s = (args.query_window_ms / 1000.0
                 if args.query_window_ms is not None else None)
     api = ApiServer(
         QueryService(store, coalesce_window_s=window_s), collector,
+        replication=shipper.status if shipper is not None else None,
         fleet=fleet,
     )
-    return store, collector, api, None
+    return store, collector, api, shipper
+
+
+def build_follower_app(args):
+    """Follower daemon (--follow): connect to the primary's ship port,
+    build the local store from the primary's config, and serve the
+    read API from it — no ingest ports, no collector. A standby's store
+    lives on ``--platform``'s device (the card by default; it raises
+    without one); a replica's on the host, by design. Returns
+    (store, follower, api)."""
+    import socket as _socket
+
+    from zipkin_tpu_torch.api.server import ApiServer
+    from zipkin_tpu_torch.query.service import QueryService
+    from zipkin_tpu_torch.replicate import (
+        Follower,
+        ReplicaTarget,
+        ShipClient,
+        StandbyTarget,
+    )
+    from zipkin_tpu_torch.replicate.protocol import config_from_dict
+
+    refuse_unported(args)
+    host, _, port = args.follow.rpartition(":")
+    if not host or not port.isdigit():
+        raise SystemExit(f"--follow wants HOST:PORT, got {args.follow!r}")
+    # No PID in the default: the name keys the primary's retention pin,
+    # and a per-process name would leak one pinned cursor per restart
+    # (truncation blocked at the dead cursor forever).
+    name = args.follower_name or (
+        f"{args.follow_mode}-{_socket.gethostname()}")
+    client = ShipClient(host, int(port), name, mode=args.follow_mode)
+    hello = client.connect()
+    config = config_from_dict(hello["config"])
+    try:
+        if args.follow_mode == "standby":
+            from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+            device = args.platform or "cuda"
+            store = None
+            if args.checkpoint:
+                from zipkin_tpu_torch import checkpoint
+
+                # Anchor bootstrap for a standby is a CHECKPOINT of the
+                # primary lineage: the shipped tail replays on top of it
+                # exactly like crash recovery would.
+                if checkpoint.exists(args.checkpoint):
+                    stats = {}
+                    store = checkpoint.load(args.checkpoint,
+                                            device=device, stats=stats)
+                    print(f"checkpoint: restored {args.checkpoint} in "
+                          f"{stats['total_s']}s")
+            if store is None:
+                store = TorchSpanStore(config, device=device)
+            target = StandbyTarget(store)
+        else:
+            from zipkin_tpu_torch.store.replica import ReplicaSpanStore
+
+            store = ReplicaSpanStore(config)
+            target = ReplicaTarget(store)
+    except BaseException:
+        # No store (no card for a standby, a bad snapshot): the
+        # connection to the primary goes too.
+        client.close()
+        raise
+    lineage = None
+    fleet = None
+    if not args.no_fleet_obs:
+        from zipkin_tpu_torch import obs
+        from zipkin_tpu_torch.obs import fleet as fobs
+
+        reg = obs.default_registry()
+        lineage = fobs.FollowerLineage(name, mode=args.follow_mode,
+                                       registry=reg)
+    follower = Follower(target, client,
+                        poll_interval_s=args.follow_poll_ms / 1000.0,
+                        lineage=lineage)
+    if lineage is not None:
+        recorder = fobs.FlightRecorder()
+        watchdog = fobs.Watchdog(recorder=recorder, registry=reg)
+        watchdog.add_probe("replication_lag",
+                           fobs.follower_lag_probe(follower.status))
+        fleet = fobs.FleetObs(
+            role=args.follow_mode, name=name, registry=reg,
+            follower=lineage, watchdog=watchdog, recorder=recorder,
+            replication=follower.status,
+        )
+    window_s = (args.query_window_ms / 1000.0
+                if args.query_window_ms is not None else None)
+    api = ApiServer(
+        QueryService(store, coalesce_window_s=window_s), None,
+        replication=follower.status,
+        fleet=fleet,
+    )
+    return store, follower, api
 
 
 def seed(collector, n_traces: int) -> None:
@@ -356,15 +493,23 @@ def seed(collector, n_traces: int) -> None:
     collector.flush()
 
 
-def start_servers(args, store, collector, api):
-    """Open the HTTP API on ``--port`` and, unless ``--scribe-port`` is
-    0, the Scribe receiver, each served from a thread of its own.
-    Returns (http server, scribe server or None)."""
+def start_servers(args, store, collector, api, shipper=None):
+    """Open the HTTP API on ``--port``, the WAL-ship endpoint on
+    ``--ship-port`` when ``shipper`` is given, and, unless
+    ``--scribe-port`` is 0, the Scribe receiver, each served from a
+    thread of its own. Returns (http server, scribe server or None,
+    ship server or None)."""
     from zipkin_tpu_torch.api.server import (make_server,
                                              serve_forever_in_thread)
 
     server = make_server(api, args.host, args.port)
     serve_forever_in_thread(server)
+    ship_srv = None
+    if shipper is not None:
+        from zipkin_tpu_torch.replicate import ShipServer
+
+        ship_srv = ShipServer(shipper, args.host, args.ship_port)
+        ship_srv.serve_in_thread()
     scribe_srv = None
     if args.scribe_port:
         from zipkin_tpu_torch.ingest.receiver import ScribeReceiver
@@ -385,7 +530,7 @@ def start_servers(args, store, collector, api):
             )
         scribe_srv = ScribeServer(receiver, args.host, args.scribe_port)
         scribe_srv.serve_in_thread()
-    return server, scribe_srv
+    return server, scribe_srv, ship_srv
 
 
 def checkpoint_now(args, store) -> None:
@@ -409,7 +554,7 @@ def serve_until(stop: threading.Event, args, store, collector) -> None:
             last_ckpt = time.time()
 
 
-def shutdown(args, store, collector, api, servers) -> None:
+def shutdown(args, store, collector, api, servers, shipper=None) -> None:
     """Graceful-save ordering (docs/DURABILITY.md): stop intake first,
     then drain-pipeline → seal-barrier → WAL-fsync (collector.flush
     enforces that order), THEN checkpoint — so the snapshot's sealed
@@ -418,10 +563,11 @@ def shutdown(args, store, collector, api, servers) -> None:
     last."""
     import traceback
 
-    server, scribe_srv = servers
-    if scribe_srv is not None:
-        scribe_srv.shutdown()
-        scribe_srv.server_close()
+    server, scribe_srv, ship_srv = servers
+    for srv in (scribe_srv, ship_srv):
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
     server.shutdown()
     server.server_close()
     try:
@@ -439,6 +585,8 @@ def shutdown(args, store, collector, api, servers) -> None:
         # only way to actually lose data here.
         traceback.print_exc()
     collector.close()
+    if shipper is not None:
+        shipper.close()
     if api.fleet is not None and api.fleet.tracker is not None:
         # Flush buffered lineage spans before the WAL's final fsync so
         # the self-trace tail is durable too.
@@ -451,25 +599,108 @@ def shutdown(args, store, collector, api, servers) -> None:
         wal.close()
 
 
+def start_follower(args, follower, api):
+    """Start the follower's fetch-apply thread and open the read API on
+    ``--port`` (no ingest port). Returns the HTTP server."""
+    from zipkin_tpu_torch.api.server import (make_server,
+                                             serve_forever_in_thread)
+
+    follower.start()
+    server = make_server(api, args.host, args.port)
+    serve_forever_in_thread(server)
+    return server
+
+
+def follow_until(stop: threading.Event, args, store, follower) -> None:
+    """The follower's serving loop, until ``stop`` is set or the
+    follower parks a terminal lineage error: a standby with
+    ``--checkpoint`` snapshots every ``--checkpoint-interval`` seconds,
+    as a primary does, and only then advances its retention ack."""
+    can_checkpoint = args.follow_mode == "standby" and args.checkpoint
+    last_ckpt = time.time()
+    while not stop.is_set():
+        stop.wait(1.0)
+        err = follower.error()
+        if err is not None and not follower.status()["connected"]:
+            # Transient disconnects retry inside the loop; only a
+            # terminal lineage error lands here with the thread
+            # stopped.
+            if follower._thread is None or not \
+                    follower._thread.is_alive():
+                print(f"follower stopped: {err!r}", flush=True)
+                return
+        if (can_checkpoint
+                and time.time() - last_ckpt > args.checkpoint_interval):
+            from zipkin_tpu_torch import checkpoint
+
+            # Captured BEFORE the save: the snapshot covers at least
+            # this frontier (records applied mid-save only push the
+            # manifest higher), so acking it after a successful save is
+            # always conservative.
+            seq = follower.target.applied_seq()
+            checkpoint.save(store, args.checkpoint)
+            # The standby's retention ack is its CHECKPOINTED frontier
+            # — only now may the primary truncate the covered records
+            # (replicate/follow.StandbyTarget).
+            follower.target.note_checkpointed(seq)
+            last_ckpt = time.time()
+
+
+def follower_shutdown(args, store, follower, api, server) -> None:
+    """The follower's ordered shutdown: close the read API, stop the
+    fetch-apply thread, then (a standby with ``--checkpoint``) save a
+    final snapshot, and close the store last."""
+    import traceback
+
+    server.shutdown()
+    server.server_close()
+    follower.close()
+    if args.follow_mode == "standby" and args.checkpoint:
+        try:
+            from zipkin_tpu_torch import checkpoint
+
+            checkpoint.save(store, args.checkpoint)
+        except Exception:
+            traceback.print_exc()
+    api.query.close()
+    store.close()
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    store, collector, api, _ = build_app(args)
+    stop = threading.Event()
+
+    def stop_on_signals():
+        # SIGINT and SIGTERM share the graceful path: both land in the
+        # ordered shutdown (a primary's drain → seal → WAL-fsync →
+        # checkpoint) instead of an interpreter teardown mid-write.
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+        signal.signal(signal.SIGINT, lambda *_: stop.set())
+
+    if args.follow:
+        store, follower, api = build_follower_app(args)
+        server = start_follower(args, follower, api)
+        print(f"zipkin-tpu {args.follow_mode} following {args.follow}, "
+              f"serving reads on {args.host}:{args.port}", flush=True)
+        stop_on_signals()
+        try:
+            follow_until(stop, args, store, follower)
+        finally:
+            follower_shutdown(args, store, follower, api, server)
+        return
+    store, collector, api, shipper = build_app(args)
     if args.seed_traces:
         seed(collector, args.seed_traces)
-    servers = start_servers(args, store, collector, api)
+    servers = start_servers(args, store, collector, api, shipper)
     print(f"zipkin-tpu example serving on {args.host}:{args.port}"
-          + (f" (scribe tcp :{args.scribe_port})" if servers[1] else ""),
+          + (f" (scribe tcp :{args.scribe_port})" if servers[1] else "")
+          + (f" (wal-ship tcp :{args.ship_port})" if servers[2] else ""),
           flush=True)
-    stop = threading.Event()
-    # SIGINT and SIGTERM share the graceful-save path: both land in the
-    # ordered shutdown (drain → seal → WAL-fsync → checkpoint) instead
-    # of an interpreter teardown mid-write.
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    stop_on_signals()
     try:
         serve_until(stop, args, store, collector)
     finally:
-        shutdown(args, store, collector, api, servers)
+        shutdown(args, store, collector, api, servers, shipper)
 
 
 if __name__ == "__main__":

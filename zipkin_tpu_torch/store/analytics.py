@@ -10,7 +10,10 @@ it overlaps, and only buckets still live in the ring
 (window_seconds × window_buckets of retention) contribute.
 
 Mixed into ``TorchSpanStore`` (mirror fed by the fused ingest step's
-commit deltas). Hosts must provide
+commit deltas) and ``ReplicaSpanStore`` (mirror fed by shipped WAL
+records, store/replica.py), so a device-free replica answers the
+windowed reads the way the primary does at the same applied frontier.
+Hosts must provide
 ``config`` (a StoreConfig), ``ensure_sketch_mirror()`` and
 ``_svc_id(name)``.
 """

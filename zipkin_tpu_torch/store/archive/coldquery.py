@@ -8,9 +8,8 @@ semantics:
 
 - ``TieredSpanStore`` (store/archive/tiered.py) — cold answers unioned
   with the hot device ring's;
-- the device-free read replica (``store/replica.py`` in the JAX
-  package; the port's comes with its replication slice), whose ENTIRE
-  row store is segments sealed from shipped WAL records.
+- ``ReplicaSpanStore`` (store/replica.py) — a device-free read replica
+  whose ENTIRE row store is segments sealed from shipped WAL records.
 
 Host contract: ``self.archive`` (a SegmentDirectory), ``self.dicts``
 (the DictionarySet that encoded the rows), and ``self._segments()`` /

@@ -281,15 +281,32 @@ def moments_close(ref, got) -> bool:
     """Stated tolerance 2: the count field exact, the other fields
     within 1e-5 of the field's largest magnitude."""
     import numpy as np
+    import torch
 
-    ref = np.asarray(ref, np.float64)
-    got = np.asarray(got, np.float64)
+    return _moments_close_tensors(
+        torch.from_numpy(np.asarray(ref, np.float64)),
+        torch.from_numpy(np.asarray(got, np.float64)))
+
+
+def _moments_close_tensors(ref, got, rows: int = 1 << 24) -> bool:
+    """``moments_close`` on two tensors where they lie (no host copy),
+    in float64 and in chunks of ``rows`` cells a field, so a full-width
+    state on the card compares without ~5 GB of D2H."""
+    import torch
+
     if ref.shape != got.shape:
         return False
-    scale = np.abs(ref).reshape(-1, ref.shape[-1]).max(0)
-    return (np.array_equal(ref[..., 0], got[..., 0])
-            and bool(np.all(np.abs(ref - got)
-                            <= 1e-5 * (np.abs(ref) + scale))))
+    r = ref.reshape(-1, ref.shape[-1])
+    g = got.reshape(-1, ref.shape[-1])
+    scale = r.abs().amax(0).to(torch.float64)
+    for i in range(0, r.shape[0], rows):
+        rc = r[i:i + rows].to(torch.float64)
+        gc = g[i:i + rows].to(torch.float64)
+        if not torch.equal(rc[:, 0], gc[:, 0]):
+            return False
+        if not bool(((rc - gc).abs() <= 1e-5 * (rc.abs() + scale)).all()):
+            return False
+    return True
 
 
 def state_mismatches(a, b, moments_tolerance: bool = False
@@ -297,26 +314,28 @@ def state_mismatches(a, b, moments_tolerance: bool = False
     """Leaf name -> differing cells between two port states (``-1``
     for a dtype/shape or counter mismatch); empty when equal. With
     ``moments_tolerance`` the three float32 moment leaves compare under
-    ``moments_close`` and every other leaf stays bitwise."""
-    import numpy as np
+    ``moments_close`` and every other leaf stays bitwise. The leaves
+    compare where ``a``'s lie (``b``'s are moved there when they lie
+    elsewhere), so two card states compare on the card."""
+    from zipkin_tpu_torch.store.device import FIELDS
 
-    from zipkin_tpu_torch.store.convert import state_to_numpy
-
-    na, nb = state_to_numpy(a), state_to_numpy(b)
     out: Dict[str, int] = {}
-    for k, x in na.items():
-        y = nb[k]
+    for k in FIELDS:
         if k == "counters":
-            if {c: int(v) for c, v in x.items()} != {
-                    c: int(v) for c, v in y.items()}:
+            if {c: int(v) for c, v in a.counters.items()} != {
+                    c: int(v) for c, v in b.counters.items()}:
                 out[k] = -1
-        elif x.dtype != y.dtype or x.shape != y.shape:
+            continue
+        x, y = a.leaves[k], b.leaves[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
             out[k] = -1
-        elif moments_tolerance and k in MOMENT_LEAVES:
-            if not moments_close(x, y):
-                out[k] = int(np.count_nonzero(x != y))
-        elif not np.array_equal(x, y):
-            out[k] = int(np.count_nonzero(x != y))
+            continue
+        y = y.to(x.device)
+        if moments_tolerance and k in MOMENT_LEAVES:
+            if not _moments_close_tensors(x, y):
+                out[k] = int((x != y).sum())
+        elif not x.equal(y):
+            out[k] = int((x != y).sum())
     return out
 
 

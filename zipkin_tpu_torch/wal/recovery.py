@@ -46,7 +46,7 @@ def apply_record_into(hot, seq: int, payload: bytes,
                       pin_tids: Optional[np.ndarray] = None) -> int:
     """Drive ONE journaled record through the store's normal commit
     body (``_commit_unit``) — the single replay step of crash recovery
-    (and of the warm-standby follower, when replication lands).
+    (and of the warm-standby follower, ``replicate/follow.StandbyTarget``).
     Returns the unit's span count."""
     group, before, deltas = decode_unit(payload)
     apply_dict_deltas(hot.dicts, before, deltas)
