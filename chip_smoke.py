@@ -16,7 +16,14 @@ nvcc per source, started together), then
    launch counters of the flat histogram and of both arena halves
    (claim, write), zeroed just before the drive, must have advanced,
    the flat histogram's by exactly one an ingest step (the step's seven
-   scatter-add sites are one fused launch);
+   scatter-add sites are one fused launch); on the first launch's
+   columns the standalone sketch APIs (``cms.update``, ``hll.update``,
+   ``quantile.update_grouped`` on fresh sketches on the card) must
+   equal the step's own sketch deltas bitwise, and each API, ``top_k``
+   on a 1,000-service ``Counters`` with forced ties and
+   ``topk_from_cms`` must give the card's and the CPU's results
+   bitwise equal; it times ``kernels.cms_update`` (K1's count-min
+   call) at that shape;
 2. drives the paged layout the same way (128-row pages, 32,768 pages):
    >= 39 launches so the page pool runs out and pages are reclaimed,
    then the known traces plus 32 big traces (exclusive, multi-page
@@ -32,7 +39,7 @@ nvcc per source, started together), then
    several of the claim's blocks; the page gather also on hole pages.
    It times call, kernel alone, twin and a one-call PyTorch yardstick;
 4. drives the daemon's default store (the same configuration with the
-   windowed arena on, 60 s x 64 buckets): 46 launches two buckets apart
+   windowed arena on, 60 s x 64 buckets): 36 launches two buckets apart
    (the slot ring laps), then one late launch whose rows lose the epoch
    war; the flat histogram must launch once a step with eight sites
    (``win_counts`` the eighth), the host sketch mirror must equal the
@@ -100,7 +107,7 @@ nvcc per source, started together), then
 13. the daemon's ingest front end at full width (``collector_path``):
    the window store behind the daemon's ``Collector`` (``Sampler(1.0)``,
    queue 500, 10 workers, self-tracing) and a ``ScribeReceiver`` fast
-   path on a ``ScribeServer``; four Scribe clients send two launches
+   path on a ``ScribeServer``; four Scribe clients send one launch
    of generated spans (made in worker processes before the clock), 100
    known traces on services of their own and one corrupt entry, in log
    calls of 2,048 entries. It fails unless the port's native codec
@@ -114,7 +121,19 @@ nvcc per source, started together), then
    sub-drive at 2^14 (WAL, ``ingest_thrift_durable``) must recover to
    the live state, card and CPU collectors must agree at 2^14, and
    ``recompute_dependencies`` must match the streaming links of the
-   known services within stated tolerance 2. It prints scribe spans/s
+   known services within stated tolerance 2. Between the Scribe drive's
+   reads and the sampled launch, Kafka ingest runs through the same
+   collector and store: a worker publishes one launch of new spans
+   through ``KafkaSpanSink(MinimalKafkaProducer(...), batch=True,
+   compress=True)`` to the port's ``FakeKafkaBroker`` on 127.0.0.1
+   (a message of 2,048 spans) while the Scribe traffic is made, 100
+   known traces and one corrupt deflate frame follow, and a
+   ``KafkaSpanReceiver`` on a ``MinimalKafkaConsumer`` drains the topic
+   into ``collector.accept_thrift``; every message must be counted, one
+   bad, every published span stored, the known traces read back equal
+   to the oracle and K1 and both K2 halves launched once a step (the
+   ``kafka`` entry of ``launches_by_path``); it prints
+   ``kafka_spans_per_s`` and ``kafka_over_scribe``. It prints scribe spans/s
    beside serial ``write_batch`` of the same launches, ack and write
    latencies, ``write_thrift``'s split (lock wait, parse + intern, chunk
    + pad, commit) and the idle share over the drive (taken under the
@@ -122,7 +141,7 @@ nvcc per source, started together), then
 14. the daemon's read path at full width (``query_path``):
    ``QueryService(store)`` with the daemon's 2 ms window over the window
    store, loaded with 12 launches of the stream and 100 known traces on
-   five services of their own; eight reader threads send ~1,200
+   five services of their own; eight reader threads send ~800
    ``get_trace_ids`` requests (by service, span name, annotation and
    binary annotation, limits 10 and 100, each order, a tenth with two
    or three terms, drawn with repeats) and ~200 sketch reads while the
@@ -145,7 +164,7 @@ nvcc per source, started together), then
    every pool request as ``GET /api/query`` must equal the direct
    ``QueryService`` answer, the known traces' ``/api/trace`` an oracle
    server's, and the catalog, dependency and quantile routes
-   ``api.handle``; eight readers send 1,200 requests through the
+   ``api.handle``; eight readers send 800 requests through the
    sockets with no launch landing (client ms, the server's handle ms,
    the engine's serve ms by tier, the HTTP share, reads/s, idle share);
    three ``POST /scribe`` calls of 2,048 entries with 20 late known
@@ -216,7 +235,7 @@ nvcc per source, started together), then
    primary with a WAL at the daemon's fsync interval and lineage at 1
    in 64 serves a ``ShipServer`` on 127.0.0.1; a warm standby on the
    same card (built from HELLO's config) and a device-free replica
-   follow it through four journaled launches and 100 known traces. The
+   follow it through three journaled launches and 100 known traces. The
    standby's state must equal the primary's (moments within stated
    tolerance 2), the replica's mirror the primary's device aggregates
    bitwise, the reads agree three ways, each standby step launch K1 and
@@ -339,14 +358,15 @@ class Scale:
             # three apart since the replication phase).
             self.known, self.small_log2, self.small_batches = 2000, 14, 18
             self.small_traces = 512
-            # 46 launches two buckets apart: 92 buckets > 64 slots.
-            self.window_launches = 46
-            # 6 apply calls of 28,672 spans (the first untimed), and 5
+            # 36 launches two buckets apart: 72 buckets > 64 slots (46
+            # before the Kafka drive came).
+            self.window_launches = 36
+            # 4 apply calls of 28,672 spans (the first untimed), and 5
             # launches before the checkpoint and 5 after (the tail): cut
             # from 12 and 8 + 8 to keep the script near half its time
             # limit since the cold-tier phases (the applies from 8 to 6
-            # since the replication phase).
-            self.pipe_applies, self.pipe_traces = 6, 4096
+            # since the replication phase, to 4 since the Kafka drive).
+            self.pipe_applies, self.pipe_traces = 4, 4096
             self.durability_launches = 5
             # 12 apply calls of 3,584 spans into 2^14 slots: the page
             # pool of 128 pages runs out and reclaims.
@@ -366,10 +386,11 @@ class Scale:
             self.prep_workers = 5
             # The query phase: 12 + 4 launches (1,835,008 spans) stay
             # inside one lap of the 2^22 ring, so no known trace laps;
-            # ~1,200 requests drawn from a pool of 160 (repeats; 2,000
-            # before the replication phase came).
+            # ~800 requests drawn from a pool of 160 (repeats; 2,000
+            # before the replication phase came, 1,200 before the Kafka
+            # drive).
             self.query_log2, self.query_launches = 22, 12
-            self.query_requests, self.query_pool = 1200, 160
+            self.query_requests, self.query_pool = 800, 160
             # The fleet phase's overhead rounds: 3 journaled launches a
             # round (~0.45 s each), three rounds a store after a warm one.
             self.fleet_round = 3
@@ -378,17 +399,19 @@ class Scale:
             # spans, not the 2^22 ring's ~4.13 M, whose host seal took
             # 154-208 s of the script's 1,200 s.
             self.cold_log2 = 20
-        # The replication phase: 4 journaled launches and the known
-        # traces shipped to a standby and a replica.
-        self.replication_launches = 4
+        # The replication phase: 3 journaled launches (4 before the Kafka
+        # drive) and the known traces shipped to a standby and a replica.
+        self.replication_launches = 3
         # The fleet phase: 4 journaled launches traced unit by unit,
         # then 3 timed rounds a store, lineage off and on in turn.
         self.fleet_launches, self.fleet_rounds = 4, 3
-        # Two launches of the stream through the Scribe front end (cut
-        # from four to make room for the daemon phase), and one through
-        # the daemon's own Scribe port (cut from two to make room for the
-        # replication phase and the daemon's standby child).
-        self.collector_launches = 2
+        # One launch of the stream through the Scribe front end (cut
+        # from four to two to make room for the daemon phase, to one for
+        # the Kafka drive, which sends one more launch through the same
+        # collector), and one through the daemon's own Scribe port (cut
+        # from two to make room for the replication phase and the
+        # daemon's standby child).
+        self.collector_launches = 1
         self.daemon_launches = 1
         # The query phase: the window store loaded with part of a lap,
         # eight readers, four launches while they read.
@@ -935,6 +958,141 @@ def path_result(torch, store, scale, written, step_s, stream_s, lat,
     }
 
 
+class FirstStepSketches:
+    """Wraps ``dev.ingest_steps`` for its next call (one launch's steps):
+    keeps copies of the sketch leaves before and after it and of the
+    columns the steps consumed (each batch's rows below ``n_spans``, the
+    step's mask), then takes itself off."""
+
+    LEAVES = ("cms_trace_spans", "hll_traces", "svc_hist")
+
+    def __init__(self, dev):
+        self.dev, self._orig = dev, dev.ingest_steps
+        self.before = self.after = self.cols = None
+        dev.ingest_steps = self._steps
+
+    def _steps(self, state, batches):
+        import torch
+
+        self.restore()
+        batches = list(batches)
+        lv = state.leaves
+        self.before = {k: lv[k].clone() for k in self.LEAVES}
+        self.cols = {c: torch.cat([getattr(b, c)[:b.n_spans].clone()
+                                   for b in batches])
+                     for c in ("trace_id", "service_id", "duration")}
+        out = self._orig(state, batches)
+        self.after = {k: lv[k].clone() for k in self.LEAVES}
+        return out
+
+    def restore(self):
+        self.dev.ingest_steps = self._orig
+
+
+def sketch_api_check(torch, K, cfg, probe, device):
+    """The standalone sketch APIs on the columns the ring path's first
+    launch consumed: ``cms.update``, ``hll.update`` and
+    ``quantile.update_grouped`` on fresh sketches on the card must equal
+    the store's own delta bitwise (counts and histograms: after - before;
+    HLL: max(before, api) == after); then each API again on the CPU,
+    with ``top_k`` on a 1,000-service ``Counters`` with forced ties and
+    ``topk_from_cms``, equal to the card's bitwise, the tie order that
+    of a numpy lexsort. It times ``kernels.cms_update`` at this shape
+    against its plain version, one ``index_add_`` and its bound, and
+    counts the K1 launches the API calls made."""
+    from zipkin_tpu_torch.ops import cms, hll, quantile as Q, topk
+    from zipkin_tpu_torch.ops.hashing import dev_split64
+
+    if probe.cols is None:
+        fail("ring path: the first launch's steps were not seen")
+    S = cfg.max_services
+    t0 = time.perf_counter()
+
+    def apis(dev):
+        tid, sid, dur = (probe.cols[c].to(dev) for c in (
+            "trace_id", "service_id", "duration"))
+        hi, lo = dev_split64(tid)
+        ok = (sid >= 0) & (sid < S) & (dur >= 0)
+        before = K.LAUNCHES["flat_histogram"]
+        sk = cms.update(cms.init(cfg.cms_depth, cfg.cms_width, device=dev),
+                        hi, lo)
+        reg = hll.update(hll.init(cfg.hll_p, device=dev), hi, lo)
+        hist = Q.update_grouped(
+            Q.init((S,), cfg.quantile_buckets, cfg.quantile_alpha,
+                   dtype=torch.int32, device=dev), sid, dur, valid=ok)
+        ctr = topk.update(topk.init(S, dtype=torch.int32, device=dev),
+                          torch.div(sid, 4, rounding_mode="floor") * 4)
+        cand_hi, cand_lo = hi[:20_000], lo[:20_000]
+        out = {"cms": sk.counts, "hll": reg.registers, "hist": hist.counts,
+               "counters": ctr.counts}
+        out["top_k_values"], out["top_k_ids"] = topk.top_k(ctr, S)
+        out["cms_top_values"], out["cms_top_positions"] = \
+            topk.topk_from_cms(sk, cand_hi, cand_lo, 1000)
+        sync(torch, torch.device(dev) if isinstance(dev, str) else dev)
+        return out, K.LAUNCHES["flat_histogram"] - before
+
+    card, k1 = apis(device)
+    b, a = probe.before, probe.after
+    if not torch.equal(card["cms"], a["cms_trace_spans"]
+                       - b["cms_trace_spans"]):
+        fail("ring path: cms.update differs from the step's count-min delta")
+    if not torch.equal(card["hist"], a["svc_hist"] - b["svc_hist"]):
+        fail("ring path: quantile.update_grouped differs from the step's "
+             "svc_hist delta")
+    if not torch.equal(torch.maximum(b["hll_traces"], card["hll"]),
+                       a["hll_traces"]):
+        fail("ring path: hll.update differs from the step's registers")
+    if device.type == "cuda" and k1 != 3:
+        fail(f"ring path: the int32 sketch updates launched K1 {k1} "
+             f"times, not 3 (cms, histogram bank, counters)")
+    cpu, _ = apis("cpu")
+    for k, v in cpu.items():
+        if not torch.equal(v, card[k].cpu()):
+            fail(f"ring path: the sketch API's {k} differs card vs CPU")
+    counts = cpu["counters"].numpy()
+    order = np.lexsort((np.arange(S), -counts))
+    if not np.array_equal(cpu["top_k_ids"].numpy(), order):
+        fail("ring path: top_k does not order ties by id")
+    api_s = time.perf_counter() - t0
+
+    # kernels.cms_update at this shape (4 x 114,688 rows into 4 x 2^16).
+    tid = probe.cols["trace_id"].to(device)
+    hi, lo = dev_split64(tid)
+    rows = cms.indices(cfg.cms_depth, cfg.cms_width, hi, lo).to(
+        torch.int32).contiguous()
+    zeros = torch.zeros((cfg.cms_depth, cfg.cms_width), dtype=torch.int32,
+                        device=device)
+    want = K.histogram_update_plain(zeros.clone(),
+                                    K.cms_flat_index(rows, cfg.cms_width))
+    got = K.cms_update(zeros.clone(), rows)
+    err = _disagree(got, want)
+    if err:
+        fail(f"kernels.cms_update disagrees with its plain version "
+             f"(max err {err})")
+    scratch = zeros.clone()
+    flat = K.cms_flat_index(rows, cfg.cms_width).long()
+    ones = torch.ones_like(flat, dtype=torch.int32)
+    touched = int(torch.unique(flat).numel())
+    bound_ms = (rows.numel() * 4 + touched * 8) / H100_BYTES_PER_S * 1e3
+    call = lambda: K.cms_update(scratch, rows)  # noqa: E731
+    out = {
+        "rows": rows.numel(), "cells": scratch.numel(), "touched": touched,
+        "ms": time_ms(torch, call),
+        "device_ms": checked_device_ms(torch, call, "hist_multi", bound_ms,
+                                       1, "kernels.cms_update")[0],
+        "plain_ms": time_ms(torch, lambda: K.histogram_update_plain(
+            scratch, K.cms_flat_index(rows, cfg.cms_width))),
+        "library_ms": time_ms(torch, lambda: scratch.view(-1).index_add_(
+            0, flat, ones)),
+        "library": "one index_add_ over the flat index",
+        "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": err,
+        "api_k1_launches": k1, "api_check_s": api_s,
+        "keys": tid.numel(),
+    }
+    log("sketch APIs vs the ring step: " + json.dumps(out))
+    return out
+
+
 def main_path(torch, K, dev, scale, device):
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
     from zipkin_tpu_torch.tracegen import ColumnarTraceGen
@@ -946,10 +1104,14 @@ def main_path(torch, K, dev, scale, device):
     gen = ColumnarTraceGen(store.dicts, n_services=scale.services,
                            n_span_names=scale.names, topology=True, seed=1)
     rec = Recorder(K)
+    probe = FirstStepSketches(dev)
     K.reset_launches()
     n_launches = -(-scale.stream_spans // (scale.batch_traces * 7))
-    written, step_s, stream_s, peaks = stream(torch, store, gen, scale,
-                                              n_launches, device)
+    try:
+        written, step_s, stream_s, peaks = stream(torch, store, gen, scale,
+                                                  n_launches, device)
+    finally:
+        probe.restore()
     profile = None
     if scale.profile_steps:
         profile = profile_steps(torch, store, gen, scale)
@@ -966,6 +1128,8 @@ def main_path(torch, K, dev, scale, device):
                               "arena_write"), device, "ring", cb["batches"])
     if cb["ring_laps"] < 1:
         fail("the span ring did not wrap")
+    sketch_api = sketch_api_check(torch, K, cfg, probe, device)
+    del probe
     lat = known_answer_reads(store, traces, [], None, names, gen)
     result = path_result(torch, store, scale, written, step_s, stream_s,
                          lat, launches, device, peaks)
@@ -976,6 +1140,7 @@ def main_path(torch, K, dev, scale, device):
         else "not measured")
     result["spans_profiled"] = (profile["launches"] * scale.batch_traces * 7
                                 if profile else 0)
+    result["sketch_api"] = sketch_api
     log("ring path result: " + json.dumps(result))
     del store
     return rec, result
@@ -2433,8 +2598,14 @@ def fleet_path(torch, K, dev, scale, device):
                      f" with {wal.last_seq} records")
             time.sleep(0.01)
         sync(torch, device)
-        launches = dict(K.LAUNCHES)
-        steps = store.counter_block()["batches"] - steps0
+        # ``wal.sync()`` fires the durable callback on this thread, so
+        # ``done`` can reach the last record while the group-commit
+        # thread's own flush (its ``store.apply``) is still stepping:
+        # read the launches and the steps in one hold of the write lock,
+        # which an apply holds through its journal and its step.
+        with store._lock:
+            launches = dict(K.LAUNCHES)
+            steps = store.counter_block()["batches"] - steps0
         check_launches(launches, ("flat_histogram", "arena_claim",
                                   "arena_write"), device, "fleet", steps)
         if device.type == "cuda" and not (
@@ -2859,7 +3030,7 @@ def replication_path(torch, K, dev, scale, device):
         f_sby.start()
         f_rep.start()
 
-        # -- traffic: four journaled launches and the known traces --------
+        # -- traffic: journaled launches and the known traces ------------
         gen = ColumnarTraceGen(primary.dicts, n_services=scale.services,
                                n_span_names=scale.names, topology=True,
                                seed=37)
@@ -3882,16 +4053,54 @@ def scribe_calls(msgs, known, size):
     return calls, len(msgs) + sum(len(tr) for tr in known)
 
 
-def prepare_scribe_traffic(scale):
+def kafka_publish(args):
+    """Launch ``i`` of the collector phase's generator (drawn as
+    ``scribe_messages`` draws it), decoded to Span objects and published
+    to ``topic`` on the broker at ``host:port`` through the port's
+    ``KafkaSpanSink(MinimalKafkaProducer(...), batch=True,
+    compress=True)``, one call (one framed message) a ``chunk`` spans.
+    Runs in a worker process that imports only the port. Returns (spans
+    published, messages, the sink's stats, publish s)."""
+    i, seed, n_services, n_names, n_traces, host, port, topic, chunk = args
+    from zipkin_tpu_torch.columnar.encode import SpanCodec
+    from zipkin_tpu_torch.ingest.kafka import KafkaSpanSink
+    from zipkin_tpu_torch.testing.kafka_fake import MinimalKafkaProducer
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    codec = SpanCodec()
+    gen = ColumnarTraceGen(codec.dicts, n_services=n_services,
+                           n_span_names=n_names, topology=True, seed=seed)
+    for k in range(i + 1):
+        batch, _, _ = gen.next_batch(n_traces,
+                                     base_ts=WIN_BASE_US + k * WIN_STEP_US)
+    spans = codec.decode(batch)
+    prod = MinimalKafkaProducer(host, port)
+    try:
+        sink = KafkaSpanSink(prod, topic=topic, batch=True, compress=True)
+        t = time.perf_counter()
+        chunks = [spans[j:j + chunk] for j in range(0, len(spans), chunk)]
+        for c in chunks:
+            sink.apply(c)
+        sink.close()
+        publish_s = time.perf_counter() - t
+    finally:
+        prod.close()
+    return len(spans), len(chunks), dict(sink.stats), publish_s
+
+
+def prepare_scribe_traffic(scale, kafka_at=None):
     """The Scribe traffic of the collector and daemon phases, made before
     any clock starts, in worker processes, one a launch: the collector's
     stream launches and its sampled launch (1% debug); the daemon's
     stream launches, drawn past the durability stream's launches (the
     generators number traces alike, so the daemon's trace ids are new to
     the snapshot it boots from); each phase's known traces on services
-    of their own; one corrupt entry a phase. Returns (stream calls,
-    sampled calls, sampled trace ids and debug flags, known traces, span
-    count sent, prep s, the daemon's traffic)."""
+    of their own; one corrupt entry a phase. With ``kafka_at`` (host,
+    port), one more worker publishes the collector's Kafka launch (the
+    launch after its sampled one) to that broker's ``zipkin`` topic
+    (``kafka_publish``). Returns (stream calls, sampled calls, sampled
+    trace ids and debug flags, known traces, span count sent, prep s,
+    the Kafka publish's result or None, the daemon's traffic)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -3904,10 +4113,17 @@ def prepare_scribe_traffic(scale):
              100 if i == n else 0) for i in range(n + 1)]
     jobs += [(first + k, 31, n_services, n_names, scale.batch_traces, 0)
              for k in range(scale.daemon_launches)]
+    published = None
     with ProcessPoolExecutor(max_workers=scale.prep_workers,
                              mp_context=multiprocessing.get_context(
                                  "spawn")) as pool:
+        if kafka_at is not None:
+            published = pool.submit(kafka_publish, (
+                n + 1, 31, n_services, n_names, scale.batch_traces,
+                *kafka_at, "zipkin", scale.scribe_call))
         made = list(pool.map(scribe_messages, jobs))
+        if published is not None:
+            published = published.result()
     size = scale.scribe_call
     known = cold_known(scale.cold_known, 32, WIN_BASE_US)
     calls, sent = scribe_calls([m for msgs, _, _ in made[:n] for m in msgs],
@@ -3922,7 +4138,7 @@ def prepare_scribe_traffic(scale):
     daemon = {"calls": d_calls, "known": d_known, "sent": d_sent,
               "first_launch": first}
     return (calls, sampled, tids, debug, known, sent,
-            time.perf_counter() - t, daemon)
+            time.perf_counter() - t, published, daemon)
 
 
 def send_calls(host, port, calls, n_clients: int = 4,
@@ -4070,20 +4286,153 @@ def stop_server(server):
     server.server_close()
 
 
+def kafka_known_chunks(known, size):
+    """The known traces as chunks of whole traces, each at most ``size``
+    spans (a trace larger than ``size`` alone), so every trace travels
+    in one message."""
+    chunks, cur = [], []
+    for tr in known:
+        if cur and len(cur) + len(tr) > size:
+            chunks.append(cur)
+            cur = []
+        cur = cur + list(tr)
+    return chunks + ([cur] if cur else [])
+
+
+def kafka_drive(torch, K, scale, device, store, collector, clock, broker,
+                published, oracle, scribe_spans_per_s):
+    """Kafka ingest through the collector phase's ``Collector`` and store:
+    the stream launch (published before the clock by ``kafka_publish``)
+    and 100 known traces of the known services (published here, a
+    message of whole traces at most ``scribe_call`` spans) plus one
+    corrupt deflate frame sit on the port's broker; then, timed, a
+    ``KafkaSpanReceiver(collector.accept, [MinimalKafkaConsumer(...)],
+    process_thrift=collector.accept_thrift)`` drains the topic and
+    ``collector.flush()`` lands it, under the CUDA-only profiler (as the
+    Scribe drive). It fails unless every message is counted, one bad,
+    every published span stored, the known traces read back equal to
+    the oracle, and K1 and both K2 halves launched once a step."""
+    from zipkin_tpu_torch.ingest.kafka import (FRAME_DEFLATE,
+                                               KafkaSpanReceiver,
+                                               KafkaSpanSink)
+    from zipkin_tpu_torch.ops.quantile import quantiles_host
+    from zipkin_tpu_torch.testing.kafka_fake import (MinimalKafkaConsumer,
+                                                     MinimalKafkaProducer)
+
+    n_stream, stream_msgs, stream_stats, publish_s = published
+    known = cold_known(scale.cold_known, 51, WIN_BASE_US + (
+        scale.collector_launches + 1) * WIN_STEP_US)
+    chunks = kafka_known_chunks(known, scale.scribe_call)
+    prod = MinimalKafkaProducer(broker.host, broker.port)
+    try:
+        sink = KafkaSpanSink(prod, topic="zipkin", batch=True, compress=True)
+        for c in chunks:
+            sink.apply(c)
+        prod.send("zipkin", bytes([FRAME_DEFLATE]) + b"not-a-zlib-stream")
+    finally:
+        prod.close()
+    n_known = sum(len(tr) for tr in known)
+    spans = n_stream + n_known
+    messages = stream_msgs + len(chunks) + 1
+    if sink.stats["published"] != n_known or stream_stats[
+            "published"] != n_stream or stream_stats["errors"]:
+        fail(f"collector path (kafka): published {stream_stats} and "
+             f"{sink.stats}")
+    for tr in known:
+        oracle.apply(tr)
+    with collector._h_write._lock:
+        h0 = collector._h_write.counts.copy()
+    split0 = dict(clock.s)
+    cb0 = store.counter_block()
+    stored0 = collector.spans_stored
+    fetch0 = broker.stats["fetch"]
+    consumer = MinimalKafkaConsumer(broker.host, broker.port, "zipkin")
+    receiver = KafkaSpanReceiver(collector.accept, [consumer],
+                                 process_thrift=collector.accept_thrift)
+    try:
+        K.reset_launches()
+        with DeviceIdle(torch, device) as idle:
+            t0 = time.perf_counter()
+            receiver.run()
+            t_consumed = time.perf_counter()
+            collector.flush()
+            sync(torch, device)
+            drive_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        consumer.close()
+    cb = store.counter_block()
+    steps = cb["batches"] - cb0["batches"]
+    stored = collector.spans_stored - stored0
+    if receiver.stats["messages"] != messages or receiver.stats["bad"] != 1 \
+            or receiver.stats["dropped"]:
+        fail(f"collector path (kafka): receiver {receiver.stats}, "
+             f"{messages} messages published with 1 corrupt frame")
+    if stored != spans:
+        fail(f"collector path (kafka): stored {stored} of {spans} "
+             f"published spans")
+    if device.type == "cuda":
+        for name in ("flat_histogram", "arena_claim", "arena_write"):
+            if launches[name] != steps:
+                fail(f"collector path (kafka): {name} launched "
+                     f"{launches[name]} times in {steps} ingest steps, "
+                     f"not once a step")
+    fetch_ms = cold_reads_vs_oracle(store, oracle,
+                                    [tr[0].trace_id for tr in known],
+                                    "collector path (kafka known traces)")
+    with collector._h_write._lock:
+        h = collector._h_write.counts - h0
+    w = collector._h_write
+    write_p50, write_p99 = quantiles_host(h, w.gamma, w.min_value,
+                                          [0.5, 0.99])
+    split = {k: clock.s[k] - split0[k] for k in clock.s}
+    rate = spans / drive_s
+    out = {
+        "kafka_spans_per_s": rate,
+        "kafka_over_scribe": rate / scribe_spans_per_s,
+        "spans": spans, "stream_spans": n_stream, "known_spans": n_known,
+        "known_traces": len(known), "messages": messages,
+        "fetch_round_trips": consumer.stats["fetches"],
+        "broker_fetches": broker.stats["fetch"] - fetch0,
+        "bytes_fetched": consumer.stats["bytes"],
+        "bytes_raw": stream_stats["bytes_raw"] + sink.stats["bytes_raw"],
+        "bytes_wire": stream_stats["bytes_wire"] + sink.stats["bytes_wire"],
+        "publish_s_in_worker": publish_s,
+        "drive_s": drive_s, "consume_s": t_consumed - t0,
+        "flush_s": drive_s - (t_consumed - t0),
+        "receiver": dict(receiver.stats),
+        "collector_write_s_p50": write_p50,
+        "collector_write_s_p99": write_p99,
+        "ingest_steps": steps, "spans_per_step": (
+            (cb["spans_seen"] - cb0["spans_seen"]) / max(steps, 1)),
+        "write_thrift_split_s": split,
+        "write_lock_held_share": split["held"] / drive_s,
+        "known_fetch_ms_p50": float(np.percentile(fetch_ms, 50)),
+        "known_fetch_ms_p99": float(np.percentile(fetch_ms, 99)),
+        "drive_idle_share": (idle.result["idle_share"] if idle.result
+                             else "not measured"),
+        "kernel_launches": launches,
+    }
+    log("kafka drive: " + json.dumps(out))
+    return out
+
+
 def collector_path(torch, K, dev, scale, device, window):
     """The daemon's ingest front end at full width (``example.py``:
     ``Collector(store, Sampler(1.0), max_queue=500, concurrency=10,
     self_trace=True)`` behind a ``ScribeReceiver(collector.accept,
     process_thrift=collector.accept_thrift)`` on a ``ScribeServer``) in
-    front of the window store: four launches of generated spans plus
+    front of the window store: a launch of generated spans plus
     100 known traces and one corrupt entry, sent by four Scribe clients
     in log calls of 2,048 entries, then ``flush()``, profiled for the
     idle share, its first step held against the plain versions of K1
     and K2; a sampled launch at
     rate 0.25 (1% debug); a durable sub-drive at 2^14 recovered on the
     card; card against CPU at 2^14; ``recompute_dependencies``; and the
-    same four launches through serial ``write_batch`` on a fresh store,
-    for the ratio."""
+    same launch through serial ``write_batch`` on a fresh store,
+    for the ratio. Between the Scribe drive's reads and the sampled
+    launch, ``kafka_drive`` sends a launch through Kafka into the same
+    collector and store."""
     from zipkin_tpu_torch import native, obs
     from zipkin_tpu_torch.aggregate import recompute_dependencies
     from zipkin_tpu_torch.ingest import Collector, ScribeReceiver
@@ -4097,9 +4446,18 @@ def collector_path(torch, K, dev, scale, device, window):
                 HERE, "build", "zipkin_tpu_torch")):
         fail(f"collector path: the native codec did not load from the "
              f"port's build directory ({native.loaded_from})")
-    (calls, sampled_calls, s_tids, s_debug, known, sent,
-     prep_s, daemon_traffic) = prepare_scribe_traffic(scale)
-    log(f"collector path: {sent} spans in {len(calls)} log calls and "
+    from zipkin_tpu_torch.testing.kafka_fake import FakeKafkaBroker
+
+    broker = FakeKafkaBroker().start()
+    try:
+        (calls, sampled_calls, s_tids, s_debug, known, sent, prep_s,
+         published, daemon_traffic) = prepare_scribe_traffic(
+             scale, (broker.host, broker.port))
+    except BaseException:
+        broker.close()
+        raise
+    log(f"collector path: {sent} spans in {len(calls)} log calls, "
+        f"{published[0]} spans in {published[1]} Kafka messages, and "
         f"{len(sampled_calls)} sampled calls prepared in {prep_s:.1f} s "
         f"(and the daemon phase's {daemon_traffic['sent']} spans in "
         f"{len(daemon_traffic['calls'])} calls)")
@@ -4176,6 +4534,12 @@ def collector_path(torch, K, dev, scale, device, window):
         write_p50, write_p99 = collector._h_write.quantile_values(
             [0.5, 0.99])
 
+        # Kafka into the same collector and store, after the Scribe
+        # drive's reads (so no second full-width store is made).
+        kafka = kafka_drive(torch, K, scale, device, store, collector,
+                            clock, broker, published, oracle,
+                            sent / drive_s)
+
         # The sampled launch: rate 0.25, 1% debug, profiled.
         collector.sampler.rate = 0.25
         th = collector.sampler.threshold
@@ -4242,6 +4606,7 @@ def collector_path(torch, K, dev, scale, device, window):
             rec.restore()
         collector._decode_segments_slow = decode_slow
         stop_server(server)
+        broker.close()
         collector.close()
     n_sampled = len(s_tids)
     del store, collector
@@ -4286,7 +4651,7 @@ def collector_path(torch, K, dev, scale, device, window):
         "recompute_dependencies_s": recompute_s,
         "max_memory_allocated_bytes": mem,
         "durable": durable, "parity": parity, "serial": serial,
-        "kernel_launches": launches,
+        "kernel_launches": launches, "kafka": kafka,
     }
     log("collector path result: " + json.dumps(result))
     return result, daemon_traffic
@@ -4403,7 +4768,7 @@ def collector_parity(torch, dev, scale, device):
 
 
 def serial_write_batch(torch, dev, scale, device):
-    """The collector phase's four launches as columns through serial
+    """The collector phase's launches as columns through serial
     ``write_batch`` on a fresh window store, each synchronised."""
     from zipkin_tpu_torch import obs
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
@@ -6139,7 +6504,8 @@ def main() -> int:
                "http": query["http"]["kernel_launches"],
                "fleet": fleet["kernel_launches"],
                "daemon": daemon["kernel_launches"],
-               "replication": repl["kernel_launches"]}
+               "replication": repl["kernel_launches"],
+               "kafka": coll["kafka"]["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -6153,7 +6519,8 @@ def main() -> int:
                      "http": query["http"]["ingest_steps"],
                      "fleet": fleet["ingest_steps"],
                      "daemon": daemon["ingest_steps"],
-                     "replication": repl["ingest_steps"]}
+                     "replication": repl["ingest_steps"],
+                     "kafka": coll["kafka"]["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",
@@ -6162,7 +6529,8 @@ def main() -> int:
          "launches_by_path": {p: v["flat_histogram"]
                               for p, v in by_path.items()},
          "steps_by_path": steps_by_path,
-         "max_abs_err": max([hist["max_abs_err"], hist8["max_abs_err"]]
+         "max_abs_err": max([hist["max_abs_err"], hist8["max_abs_err"],
+                             result["sketch_api"]["max_abs_err"]]
                             + [r["max_abs_err"]
                                for r in hist_rows + hist8_rows]),
          **{k: hist[k] for k in (
@@ -6178,7 +6546,10 @@ def main() -> int:
                  "device_ms", "plain_ms", "bound_ms", "library_ms")},
              "eighth_site": {k: hist8_rows[0][k] for k in (
                  "cells", "rows", "touched", "ms", "device_ms", "plain_ms",
-                 "bound_ms", "library_ms")}}},
+                 "bound_ms", "library_ms")}},
+         "cms_update": {k: result["sketch_api"][k] for k in (
+             "rows", "cells", "touched", "ms", "device_ms", "plain_ms",
+             "bound_ms", "library_ms", "max_abs_err", "api_k1_launches")}},
         {"name": "arena_claim_scatter", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/arena_claim_scatter.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:247",

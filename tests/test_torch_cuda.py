@@ -1091,3 +1091,62 @@ def test_cuda_standby_and_replica_follow_a_card_primary(cuda, tmp_path):
     finally:
         for fn in reversed(closers):
             fn()
+
+
+@pytest.mark.cuda
+def test_cuda_sketch_apis_match_cpu(cuda):
+    """Each standalone sketch API on the card and on the CPU, the same
+    inputs, equal bitwise: count-min (int32 through the flat-histogram
+    kernel, one launch an update; float32 through ``index_add_``), HLL,
+    the banked log-histogram and its quantiles, top-k counters with
+    forced ties, ``topk_from_cms`` and the moments helpers."""
+    from zipkin_tpu_torch.ops import cms, hll, moments as M, quantile as Q
+    from zipkin_tpu_torch.ops import topk
+    from zipkin_tpu_torch.ops.hashing import split64
+    from zipkin_tpu_torch.testing.crash import moments_close
+
+    rng = np.random.default_rng(61)
+    n = 100_000
+    keys = rng.integers(0, 30_000, n).astype(np.int64)
+    hi, lo = split64(keys)
+    svc = rng.integers(-2, 1003, n).astype(np.int32)
+    dur = rng.integers(-5, 10**7, n).astype(np.int64)
+    ok = (svc >= 0) & (svc < 1000) & (dur >= 0)
+    w = rng.integers(1, 4, n).astype(np.int32)
+
+    def run(dev):
+        t = (lambda a: torch.from_numpy(a).to(dev))
+        before = K.LAUNCHES["flat_histogram"]
+        sk = cms.update(cms.init(device=dev), hi, lo)
+        cms_launches = K.LAUNCHES["flat_histogram"] - before
+        skw = cms.update(sk, hi, lo, weights=t(w))
+        skf = cms.update(cms.init(dtype=torch.float32, device=dev), hi, lo)
+        reg = hll.update(hll.init(device=dev), hi, lo, valid=t(ok))
+        hist = Q.update_grouped(Q.init(shape=(1000,), dtype=torch.int32,
+                                       device=dev), t(svc), t(dur),
+                                valid=t(ok))
+        histf = Q.update(Q.init(device=dev), t(dur[:5000]))
+        ctr = topk.update(topk.init(1000, dtype=torch.int32, device=dev),
+                          t(svc // 4 * 4), valid=t(ok))
+        cand_hi, cand_lo = split64(np.arange(30_000, dtype=np.int64))
+        out = [sk.counts, skw.counts, skf.counts, reg.registers,
+               hist.counts, histf.counts, ctr.counts,
+               *topk.top_k(ctr, 1000),
+               *topk.topk_from_cms(sk, cand_hi, cand_lo, 500),
+               cms.query(skw, cand_hi, cand_lo),
+               *(Q.quantile(hist, q) for q in (0.5, 0.99)),
+               M.reduce_moments(M.of(t(dur[:4096].astype(np.float32))))]
+        return [x.cpu() for x in out], cms_launches
+
+    want, cpu_launches = run("cpu")
+    got, card_launches = run(cuda)
+    torch.cuda.synchronize()
+    assert cpu_launches == 0 and card_launches == 1
+    # Moments: stated tolerance 2 (float32 arithmetic on another device).
+    assert moments_close(want.pop().numpy(), got.pop().numpy())
+    for k, (a, b) in enumerate(zip(want, got)):
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"output {k}")
+        else:
+            assert torch.equal(a, b), f"output {k}"

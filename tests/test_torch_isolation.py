@@ -92,7 +92,15 @@ def test_package_imports_without_jax():
             "TieredSpanStore.write_thrift; "
             "from zipkin_tpu_torch.client import B3Headers, Tracer; "
             "from zipkin_tpu_torch.query import QueryService, QueryEngine; "
-            "from zipkin_tpu_torch.api import extract_query")
+            "from zipkin_tpu_torch.api import extract_query; "
+            "from zipkin_tpu_torch.ops import cms, hashing, hll, moments, "
+            "quantile, topk; "
+            "from zipkin_tpu_torch.ops.kernels import cms_update; "
+            "assert hashing.join64 and cms.CountMin and hll.HyperLogLog "
+            "and quantile.LogHistogram and moments.variance and "
+            "topk.Counters; "
+            "from zipkin_tpu_torch.testing.kafka_fake import "
+            "FakeKafkaBroker, MinimalKafkaConsumer, MinimalKafkaProducer")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 

@@ -118,6 +118,30 @@ def test_histogram_many_twin_matches_pallas_and_xla(n_sites):
     assert K.LAUNCHES == before  # twins never count
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cms_update_matches_pallas_cms_update(weighted):
+    """``kernels.cms_update`` (its twin on the CPU) against
+    ``pallas_kernels.cms_update`` in interpret mode, on the cms site's
+    inputs: buckets in each row, masked keys -1 in every row."""
+    counts, rows, _ = _site(90, "cms", 4 * 256, 700, False)
+    w = (np.random.default_rng(91).integers(1, 4, rows.shape[1]).astype(
+        np.int32) if weighted else None)
+    want = np.asarray(pk.cms_update(
+        jnp.asarray(counts.reshape(4, -1)), jnp.asarray(rows),
+        None if w is None else jnp.asarray(w), tile=256))
+    got = K.cms_update(torch.from_numpy(counts.reshape(4, -1).copy()),
+                       torch.from_numpy(rows),
+                       None if w is None else torch.from_numpy(w))
+    np.testing.assert_array_equal(want, got.numpy())
+    flat = K.cms_flat_index(torch.from_numpy(rows), 256)
+    plain = K.histogram_update_plain(torch.from_numpy(counts.copy()), flat,
+                                     None if w is None else torch.from_numpy(
+                                         np.broadcast_to(w, rows.shape)
+                                         .reshape(-1).copy()))
+    np.testing.assert_array_equal(want.reshape(-1), plain.numpy())
+    assert K.LAUNCHES["flat_histogram"] == 0  # twins never count
+
+
 def test_store_plain_scatter_matches_xla():
     # The store's own plain scatter (weight 1, no weights argument).
     for k, (kind, m, n, _) in enumerate(_SITES):

@@ -41,10 +41,24 @@ def split64(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     ).astype(np.uint32)
 
 
+def join64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """Host: (hi, lo) uint32 columns -> int64 column (split64's inverse)."""
+    u = (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(lo, np.uint64)
+    return u.view(np.int64)
+
+
 def dev_split64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """int64 tensor -> (hi, lo) words, each an int64 in [0, 2^32)."""
     x = x.to(torch.int64)
     return (x >> 32) & M32, x & M32
+
+
+def words(x, device) -> torch.Tensor:
+    """uint32 words (a numpy column, a sequence or a tensor) as the int64
+    tensor on ``device`` that every function here takes."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.uint32).astype(np.int64))
+    return x.to(device=device, dtype=torch.int64) & M32
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:

@@ -3,7 +3,8 @@
 - ``histogram_update_many`` -> ``csrc/flat_histogram.cu``: replaces the
   TPU kernel ``zipkin_tpu/ops/pallas_kernels.py:flat_histogram``; one
   launch adds up to eight flat histograms (the ingest step's seven
-  sites); ``histogram_update`` is its one-site call.
+  sites); ``histogram_update`` is its one-site call, and ``cms_update``
+  (``pallas_kernels.cms_update``) a count-min table's update as one.
 - ``arena_claim`` + ``arena_write`` -> ``csrc/arena_claim_scatter.cu``:
   together they replace ``zipkin_tpu/ops/pallas_kernels.py:
   arena_claim_scatter`` (``arena_claim_scatter`` here calls the two). The
@@ -315,6 +316,34 @@ def flat_histogram(idx: torch.Tensor, weights: torch.Tensor,
     """The TPU kernel's own contract: the [m] int32 histogram delta."""
     out = torch.zeros(m, dtype=torch.int32, device=idx.device)
     return histogram_update(out, idx, weights)
+
+
+def cms_flat_index(idx_rows: torch.Tensor, width: int) -> torch.Tensor:
+    """The flat int32 index into a [D, width] table of per-row buckets
+    ``idx_rows`` [D, N] (row r's bucket plus r x width; -1 where a
+    bucket is negative), as ``pallas_kernels.cms_update`` flattens (in
+    int32, as it does). No fill kernel: a profile finds its calls by
+    the flush's fill."""
+    idx = idx_rows.to(torch.int32)
+    rows = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
+    flat = idx + (rows * width)[:, None]
+    return flat.masked_fill_(idx < 0, -1).reshape(-1)
+
+
+def cms_update(counts: torch.Tensor, idx_rows: torch.Tensor,
+               weights=None) -> torch.Tensor:
+    """Count-min update, the function of ``pallas_kernels.cms_update``:
+    int32 ``counts`` [D, W] += the per-row scatter of ``idx_rows`` [D, N]
+    (a key's bucket in each row) with ``weights`` [N] (None: ones), as
+    ONE flat histogram over D x W: one kernel launch on the card, the
+    plain twin (``histogram_update_plain`` over the same flat index) on
+    the CPU. In place; returns ``counts``."""
+    d, w = counts.shape
+    flat = cms_flat_index(idx_rows, w)
+    if weights is not None:
+        weights = torch.broadcast_to(weights.to(counts.dtype),
+                                     (d, idx_rows.shape[1])).reshape(-1)
+    return histogram_update(counts, flat, weights)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,18 @@ import torch
 N_FIELDS = 5  # n, mean, m2, m3, m4
 
 
+def zero(shape=(), dtype=torch.float32, device="cuda") -> torch.Tensor:
+    return torch.zeros(tuple(shape) + (N_FIELDS,), dtype=dtype,
+                       device=device)
+
+
+def of(x) -> torch.Tensor:
+    """Moments of single observations: x[...] -> [..., 5]."""
+    x = torch.as_tensor(x)
+    z = torch.zeros_like(x)
+    return torch.stack([torch.ones_like(x), x, z, z, z], dim=-1)
+
+
 def combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise combine, elementwise over leading dims ([...,5],[...,5])."""
     na, ma, m2a, m3a, m4a = a.unbind(-1)
@@ -43,20 +55,23 @@ def combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where((nb == 0)[..., None], a, out)
 
 
-def segment_moments(values: torch.Tensor, segment_ids: torch.Tensor,
-                    num_segments: int, valid: torch.Tensor) -> torch.Tensor:
-    """Exact per-segment moments of ``values`` -> [num_segments, 5]."""
-    x = values.to(torch.float32)
-    w = valid.to(torch.float32)
+def segment_moments(values, segment_ids, num_segments: int, valid=None,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Exact per-segment moments of ``values`` -> [num_segments, 5];
+    ``valid`` (default: every row) masks out padding rows."""
+    x = torch.as_tensor(values).to(dtype)
+    seg = torch.as_tensor(segment_ids, device=x.device).to(torch.int64)
+    valid = (torch.ones(seg.shape, dtype=torch.bool, device=x.device)
+             if valid is None
+             else torch.as_tensor(valid, device=x.device).to(torch.bool))
+    w = valid.to(dtype)
     # Masked and out-of-range rows go to a scratch segment (segment_sum
     # drops out-of-range ids).
-    seg = segment_ids.to(torch.int64)
     seg = torch.where(valid & (seg >= 0) & (seg < num_segments), seg,
                       torch.full_like(seg, num_segments))
 
     def ssum(v):
-        out = torch.zeros(num_segments + 1, dtype=torch.float32,
-                          device=x.device)
+        out = torch.zeros(num_segments + 1, dtype=dtype, device=x.device)
         return out.index_add_(0, seg, v)
 
     n = ssum(w)
@@ -69,8 +84,10 @@ def segment_moments(values: torch.Tensor, segment_ids: torch.Tensor,
     return torch.stack([n, mean, m2, m3, m4], dim=-1)[:num_segments]
 
 
-def reduce_moments(m: torch.Tensor) -> torch.Tensor:
-    """Tree-reduce a stack [k, ..., 5] along axis 0 via combine."""
+def reduce_moments(m: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Tree-reduce a stack of moments [..., k, ..., 5] along ``axis``
+    via combine (log2(k) combine steps)."""
+    m = torch.movedim(m, axis, 0)
     k = m.shape[0]
     while k > 1:
         if k % 2:
@@ -79,3 +96,16 @@ def reduce_moments(m: torch.Tensor) -> torch.Tensor:
         m = combine(m[0::2], m[1::2])
         k = m.shape[0]
     return m[0]
+
+
+def variance(m: torch.Tensor) -> torch.Tensor:
+    n = m[..., 0]
+    return m[..., 2] / torch.where(n > 0, n, torch.ones_like(n))
+
+
+def mean(m: torch.Tensor) -> torch.Tensor:
+    return m[..., 1]
+
+
+def count(m: torch.Tensor) -> torch.Tensor:
+    return m[..., 0]

@@ -44,6 +44,7 @@ from zipkin_tpu_torch.ops import kernels as K
 from zipkin_tpu_torch.ops import moments as M
 from zipkin_tpu_torch.ops import quantile as Q
 from zipkin_tpu_torch.ops.hashing import dev_split64, mix_keys64, srl
+from zipkin_tpu_torch.ops.topk import topk_desc
 
 I64_MAX = (1 << 63) - 1
 I64_MIN = -(1 << 63)
@@ -1468,13 +1469,6 @@ def ingest_steps(state: StoreState, batches) -> StoreState:
 # ---------------------------------------------------------------------------
 
 
-def _topk_desc(key: torch.Tensor, k: int, dim: int = -1):
-    """(values, indices) of the k largest along ``dim``, equal values in
-    index order — the tie rule of jax.lax.top_k."""
-    vals, idx = torch.sort(key, dim=dim, descending=True, stable=True)
-    return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
-
-
 def _span_slot(gid, row_gid, capacity: int):
     slot = torch.clamp(gid % capacity, 0, capacity - 1)
     return slot, (gid >= 0) & (row_gid[slot] == gid)
@@ -1483,7 +1477,7 @@ def _span_slot(gid, row_gid, capacity: int):
 def _topk_candidates(tid, ts, valid, k: int):
     """Top-k candidate rows by ts desc -> one stacked [3, k] int64."""
     key = torch.where(valid, ts, torch.full_like(ts, -1))
-    vals, idx = _topk_desc(key, k)
+    vals, idx = topk_desc(key, k)
     return torch.stack([tid[idx], ts[idx], (vals >= 0).to(torch.int64)])
 
 
@@ -1704,7 +1698,7 @@ def iquery_trace_ids_multi(state: StoreState, probes, k: int):
     ts = state.ts_last[slot]
     ok &= (ts >= 0) & (ts <= end_ts[:, None])
     key = torch.where(ok, ts, torch.full_like(ts, -1))
-    vals, sel = _topk_desc(key, k, dim=1)
+    vals, sel = topk_desc(key, k, dim=1)
     tid = torch.gather(state.trace_id[slot], 1, sel)
     tsk = torch.gather(ts, 1, sel)
     mat = torch.stack([tid, tsk, (vals >= 0).to(i64)], dim=1)
@@ -1800,7 +1794,7 @@ def iquery_gather_trace_rows(state: StoreState, sorted_qids, k_spans: int,
             & (state.trace_id[s_slot] == q[:, None]))
     key_s = torch.where(s_ok, I64_MAX - s_gid,
                         torch.full_like(s_gid, -1)).reshape(-1)
-    vals_s, sel_s = _topk_desc(key_s, min(k_spans, key_s.shape[0]))
+    vals_s, sel_s = topk_desc(key_s, min(k_spans, key_s.shape[0]))
     span_mat = _mat(state, SPAN_MAT_COLS, s_slot.reshape(-1)[sel_s])
     span_mat = torch.where((vals_s >= 0)[None], span_mat,
                            torch.full_like(span_mat, -1))
@@ -1816,7 +1810,7 @@ def iquery_gather_trace_rows(state: StoreState, sorted_qids, k_spans: int,
               & (state.trace_id[oslot] == q[:, None]))
         key = torch.where(ok, I64_MAX - gid,
                           torch.full_like(gid, -1)).reshape(-1)
-        vals, sel = _topk_desc(key, min(k, key.shape[0]))
+        vals, sel = topk_desc(key, min(k, key.shape[0]))
         mat = _mat(state, cols, slot.reshape(-1)[sel])
         mat = torch.where((vals >= 0)[None], mat, torch.full_like(mat, -1))
         return ok.sum(), _pad_cols(mat, k), gate
@@ -1870,7 +1864,7 @@ def _oldest_k(mask, wp, cap: int, k: int):
     head = wp % cap
     age = (_arange(cap, dev) - head) % cap
     key = torch.where(mask, cap - age, torch.zeros_like(age))
-    return _topk_desc(key, k)[1]
+    return topk_desc(key, k)[1]
 
 
 def _span_in(state: StoreState, q):
@@ -1914,7 +1908,7 @@ def gather_trace_rows(state: StoreState, sorted_qids, k_spans: int,
     if c.paged_enabled:
         skey = torch.where(span_in, I64_MAX - state.row_gid,
                            torch.full_like(state.row_gid, -1))
-        sel = _topk_desc(skey, k_spans)[1]
+        sel = topk_desc(skey, k_spans)[1]
     else:
         sel = _oldest_k(span_in, state.write_pos, c.capacity, k_spans)
     span_mat = _mat(state, SPAN_MAT_COLS, sel)
@@ -1948,7 +1942,7 @@ def capture_eviction_rows(state: StoreState, lo: int, hi: int,
     if c.paged_enabled:
         skey = torch.where(span_in, I64_MAX - state.row_gid,
                            torch.full_like(state.row_gid, -1))
-        sel = _topk_desc(skey, k_spans)[1]
+        sel = topk_desc(skey, k_spans)[1]
     else:
         sel = _oldest_k(span_in, state.write_pos, c.capacity, k_spans)
     span_mat = _mat(state, SPAN_MAT_COLS, sel)
@@ -1995,7 +1989,7 @@ def gather_paged_trace_rows(state: StoreState, sorted_qids, pages, epochs,
     g_pos = torch.clamp(torch.searchsorted(q, g_tid), 0, nq - 1)
     ok = (expected >= 0) & (rows[-1] == expected) & (q[g_pos] == g_tid)
     skey = torch.where(ok, I64_MAX - expected, torch.full_like(expected, -1))
-    _, sel = _topk_desc(skey, min(k_spans, skey.shape[0]))
+    _, sel = topk_desc(skey, min(k_spans, skey.shape[0]))
     span_mat = torch.where(ok[sel][None], rows[:, sel],
                            torch.full_like(rows[:, sel], -1))
     span_mat = _pad_cols(span_mat, k_spans)
@@ -2153,5 +2147,5 @@ def compact_bank(bank: torch.Tensor, k: int):
     n_nonzero > k."""
     counts = bank[:, 0]
     nz = (counts > 0).sum()
-    idx = _topk_desc(counts, k)[1]
+    idx = topk_desc(counts, k)[1]
     return nz, idx, bank[idx]
