@@ -25,7 +25,7 @@ nvcc per source, started together), then
    bitwise equal; it times ``kernels.cms_update`` (K1's count-min
    call) at that shape;
 2. drives the paged layout the same way (128-row pages, 32,768 pages):
-   >= 39 launches so the page pool runs out and pages are reclaimed,
+   >= 37 launches so the page pool runs out and pages are reclaimed,
    then the known traces plus 32 big traces (exclusive, multi-page
    chains) and one trace past ``page_max_chain`` (its read takes the
    ring-scan fallback); all four kernel wrappers must have launched, the
@@ -39,7 +39,7 @@ nvcc per source, started together), then
    several of the claim's blocks; the page gather also on hole pages.
    It times call, kernel alone, twin and a one-call PyTorch yardstick;
 4. drives the daemon's default store (the same configuration with the
-   windowed arena on, 60 s x 64 buckets): 36 launches two buckets apart
+   windowed arena on, 60 s x 64 buckets): 34 launches two buckets apart
    (the slot ring laps), then one late launch whose rows lose the epoch
    war; the flat histogram must launch once a step with eight sites
    (``win_counts`` the eighth), the host sketch mirror must equal the
@@ -58,9 +58,9 @@ nvcc per source, started together), then
    spans pipelined on the card against serial on the CPU;
 7. durability on the daemon's default store (the window on) at full
    width: a write-ahead log with the daemon's defaults (group commit
-   every 0.05 s, 64 MB segments), 5 launches, ``checkpoint.save``, 5
+   every 0.05 s, 64 MB segments), 4 launches, ``checkpoint.save``, 4
    more launches; then ``wal.recover`` restores a second store on the
-   card and replays the 5-record tail. Integer leaves and counters must
+   card and replays the 4-record tail. Integer leaves and counters must
    equal the uncrashed store's bitwise and the three moment leaves
    within the stated tolerance, the recovered mirror its own device
    leaves, and trace reads, name queries, dependency link counts and
@@ -68,7 +68,7 @@ nvcc per source, started together), then
    launches once a replayed step and the arena halves launch too. It
    prints the save, load and replay seconds by phase, the snapshot and
    WAL bytes, the log's append latency and the peak device memory; one
-   more launch must journal as record 11;
+   more launch must journal as record 9;
 8. the paged layout at capacity 2^14: a pipelined store is saved while
    a writer plans units past the gathered frontier; recovery on the
    card must take those units' page claims from the snapshot's plan
@@ -108,7 +108,8 @@ nvcc per source, started together), then
    the window store behind the daemon's ``Collector`` (``Sampler(1.0)``,
    queue 500, 10 workers, self-tracing) and a ``ScribeReceiver`` fast
    path on a ``ScribeServer``; four Scribe clients send one launch
-   of generated spans (made in worker processes before the clock), 100
+   of generated spans (made in worker processes from the
+   ``cold_tier_paged`` phase on, ``EarlyTraffic``), 100
    known traces on services of their own and one corrupt entry, in log
    calls of 2,048 entries. It fails unless the port's native codec
    loaded from ``build/zipkin_tpu_torch/``, every span but the corrupt
@@ -141,7 +142,7 @@ nvcc per source, started together), then
 14. the daemon's read path at full width (``query_path``):
    ``QueryService(store)`` with the daemon's 2 ms window over the window
    store, loaded with 12 launches of the stream and 100 known traces on
-   five services of their own; eight reader threads send ~800
+   five services of their own; eight reader threads send ~600
    ``get_trace_ids`` requests (by service, span name, annotation and
    binary annotation, limits 10 and 100, each order, a tenth with two
    or three terms, drawn with repeats) and ~200 sketch reads while the
@@ -164,7 +165,7 @@ nvcc per source, started together), then
    every pool request as ``GET /api/query`` must equal the direct
    ``QueryService`` answer, the known traces' ``/api/trace`` an oracle
    server's, and the catalog, dependency and quantile routes
-   ``api.handle``; eight readers send 800 requests through the
+   ``api.handle``; eight readers send 600 requests through the
    sockets with no launch landing (client ms, the server's handle ms,
    the engine's serve ms by tier, the HTTP share, reads/s, idle share);
    three ``POST /scribe`` calls of 2,048 entries with 20 late known
@@ -203,7 +204,7 @@ nvcc per source, started together), then
    --cold-tier --capture-backlog 4 --wal-dir --checkpoint`` (the rest at
    the daemon's defaults) in a session of its own, driven over its own
    sockets. Boot A must replay exactly the log records past the
-   snapshot and answer 121 reads equal to the recovered store's through
+   snapshot and answer 71 reads equal to the recovered store's through
    an ``ApiServer`` in this process; four Scribe clients send a
    launch of spans, 100 known traces and a corrupt entry (acked after
    the durable append; the traffic made with the collector phase's)
@@ -250,7 +251,28 @@ nvcc per source, started together), then
    commit-to-visible lag p50/p99 a follower, the standby's apply
    spans/s beside the primary's journaled ``write_batch``, the
    replica's seconds a record (mirror fold, seal), the anchor's bytes
-   and seconds, and the reconnect seconds.
+   and seconds, and the reconnect seconds;
+18. the sharded store (``sharded_path``): a ``ShardedSpanStore`` of 4
+   shards at the full configuration on the one card (4 x ~4.8 GB) and
+   a ``TorchSpanStore`` at the same configuration take the same Span
+   lists through ``apply``: 4 units of 114,688 generated spans (each
+   one launch unit: ~28,672 spans a shard step), then 100 known traces
+   on services of their own; no ring laps. K1, the claim and the write
+   must launch exactly 4 times a unit, once a shard step, empty shards
+   included (the ``sharded`` entry of ``launches_by_path``; K3 0: the
+   sharded store refuses the paged layout). The fleet's reads must
+   equal the single store's: the known traces by id, existence,
+   durations, the service and span-name catalogs, quantiles, the
+   summed count, histogram and count-min leaves, the HLL registers, the
+   dependency links (moments by stated tolerance 2) and the known
+   services' index reads. The ``FleetMirror`` must equal the device's
+   cross-shard merge bitwise, as the commits fed it and again after a
+   resync; 8 readers released at a barrier must take at most 2 fused
+   cross-shard reads with the serialized answers; a 2-shard fleet at
+   2^14 must equal its CPU twin. It prints apply spans/s after the
+   first unit, each unit's ms split (host encode and build, the shard
+   steps, the summary), the reduction's ms, read ms p50/p99 by kind and
+   the peak device memory, beside the card's name and power limit.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -350,6 +372,8 @@ class Scale:
             self.query_requests, self.query_pool = 200, 40
             self.fleet_round = 2
             self.cold_log2 = self.cap_log2
+            self.shard_units, self.shard_parity_applies = 2, 4
+            self.cold_parity_batches = self.small_batches
         else:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
@@ -358,22 +382,24 @@ class Scale:
             # three apart since the replication phase).
             self.known, self.small_log2, self.small_batches = 2000, 14, 18
             self.small_traces = 512
-            # 36 launches two buckets apart: 72 buckets > 64 slots (46
-            # before the Kafka drive came).
-            self.window_launches = 36
-            # 4 apply calls of 28,672 spans (the first untimed), and 5
-            # launches before the checkpoint and 5 after (the tail): cut
+            # 34 launches two buckets apart: 68 buckets > 64 slots (46
+            # before the Kafka drive came, 36 before the sharded phase).
+            self.window_launches = 34
+            # 3 apply calls of 28,672 spans (the first untimed), and 4
+            # launches before the checkpoint and 4 after (the tail): cut
             # from 12 and 8 + 8 to keep the script near half its time
             # limit since the cold-tier phases (the applies from 8 to 6
-            # since the replication phase, to 4 since the Kafka drive).
-            self.pipe_applies, self.pipe_traces = 4, 4096
-            self.durability_launches = 5
+            # since the replication phase, to 4 since the Kafka drive,
+            # to 3 and the launches from 5 + 5 since the sharded phase).
+            self.pipe_applies, self.pipe_traces = 3, 4096
+            self.durability_launches = 4
             # 12 apply calls of 3,584 spans into 2^14 slots: the page
             # pool of 128 pages runs out and reclaims.
             self.dur_paged_log2, self.dur_paged_applies = 14, 12
             self.dur_paged_traces = 512
-            # 39 launches = 4,472,832 spans > 2^22: the pool runs out.
-            self.paged_cap_log2, self.paged_launches = 22, 39
+            # 37 launches = 4,243,456 spans > 2^22: the pool runs out
+            # (39 before the sharded phase).
+            self.paged_cap_log2, self.paged_launches = 22, 37
             self.page_max_chain, self.n_big = 64, 32
             self.big_min, self.big_max = 200, 4000
             self.overflow_spans = 20000  # > 64 pages x 128 rows
@@ -386,11 +412,11 @@ class Scale:
             self.prep_workers = 5
             # The query phase: 12 + 4 launches (1,835,008 spans) stay
             # inside one lap of the 2^22 ring, so no known trace laps;
-            # ~800 requests drawn from a pool of 160 (repeats; 2,000
+            # ~600 requests drawn from a pool of 160 (repeats; 2,000
             # before the replication phase came, 1,200 before the Kafka
-            # drive).
+            # drive, 800 before the sharded phase).
             self.query_log2, self.query_launches = 22, 12
-            self.query_requests, self.query_pool = 800, 160
+            self.query_requests, self.query_pool = 600, 160
             # The fleet phase's overhead rounds: 3 journaled launches a
             # round (~0.45 s each), three rounds a store after a warm one.
             self.fleet_round = 3
@@ -399,6 +425,13 @@ class Scale:
             # spans, not the 2^22 ring's ~4.13 M, whose host seal took
             # 154-208 s of the script's 1,200 s.
             self.cold_log2 = 20
+            # The sharded phase: 4 units of 114,688 spans, each one apply
+            # of Span objects, ~28,672 spans a shard step.
+            self.shard_units, self.shard_parity_applies = 4, 2
+            # The cold tier's card-vs-cpu parity: 9 batches of 3,584
+            # spans, ~2 laps of the 2^14 ring, two segments (18 before
+            # the sharded phase).
+            self.cold_parity_batches = 9
         # The replication phase: 3 journaled launches (4 before the Kafka
         # drive) and the known traces shipped to a standby and a replica.
         self.replication_launches = 3
@@ -417,9 +450,14 @@ class Scale:
         # eight readers, four launches while they read.
         self.query_writes, self.query_readers = 4, 8
         # Launches past one lap of the span ring: the first capture
-        # window (~capacity spans) is pulled and sealed, then three more.
+        # window (~capacity spans) is pulled and sealed, then two more,
+        # so launch 1 (sampled as cold only) is overwritten (three
+        # before the sharded phase).
         self.cold_launches = -(-(1 << self.cold_log2)
-                               // (self.batch_traces * 7)) + 3
+                               // (self.batch_traces * 7)) + 2
+        # A daemon boot is held to this many of the stream's traces
+        # (100 before the sharded phase) and each service's queries.
+        self.boot_traces = 50
 
 
 # ---------------------------------------------------------------------------
@@ -1311,13 +1349,25 @@ def timed_mirror(store):
 
 
 def mirror_equals_device(store, what):
-    from zipkin_tpu_torch.store.convert import state_to_numpy
-
-    st = state_to_numpy(store.state)
+    """The store's sketch mirror equals its device leaves bitwise (only
+    the mirrored leaves are copied out)."""
     for name, got in zip(WINDOW_LEAVES, store.sketch_mirror.arrays()):
-        if got.dtype != st[name].dtype or not np.array_equal(got, st[name]):
+        want = store.state.leaves[name].cpu().numpy()
+        if got.dtype != want.dtype or not np.array_equal(got, want):
             fail(f"{what}: the sketch mirror's {name} differs from the "
                  f"device leaf")
+
+
+def check_card_states_equal(a, b, what):
+    """Two port states equal where they lie (on the card: no copy of
+    ~4.8 GB out): integer leaves bitwise, the moment leaves by stated
+    tolerance 2 (``testing.crash.state_mismatches``)."""
+    from zipkin_tpu_torch.testing.crash import state_mismatches
+
+    bad = state_mismatches(a, b, moments_tolerance=True)
+    if bad:
+        fail(f"{what}: leaves differ (cells a leaf, -1 for a shape, dtype "
+             f"or counter mismatch): {bad}")
 
 
 def window_path(torch, K, dev, scale, device, ring):
@@ -1483,7 +1533,6 @@ def pipeline_path(torch, K, dev, scale, device):
     much of the pipelined rate the threads lose waiting for the
     interpreter lock."""
     from zipkin_tpu_torch import obs
-    from zipkin_tpu_torch.store.convert import state_to_numpy
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
 
     cfg = full_config(dev, scale.cap_log2, scale.services, **WINDOW)
@@ -1501,7 +1550,6 @@ def pipeline_path(torch, K, dev, scale, device):
         serial.apply(spans)
     sync(torch, device)
     serial_s = time.perf_counter() - t
-    want = state_to_numpy(serial.state)
     result = {
         "applies": len(applies), "spans_timed": n_timed,
         "spans_per_apply": len(applies[1]), "setup_decode_s": setup_s,
@@ -1539,8 +1587,8 @@ def pipeline_path(torch, K, dev, scale, device):
         if cb != serial.counter_block():
             fail("pipeline path: counter blocks differ from the serial "
                  "store's")
-        _check_states_equal(want, state_to_numpy(piped.state),
-                            f"pipeline path ({label})")
+        check_card_states_equal(serial.state, piped.state,
+                                f"pipeline path ({label})")
         for a, b in zip(serial.sketch_mirror.arrays(),
                         piped.sketch_mirror.arrays()):
             if not np.array_equal(a, b):
@@ -1612,14 +1660,13 @@ def _compare_answers(want, got, what):
 
 def durability_path(torch, K, dev, scale, device):
     """Checkpoint + WAL at full width on the daemon's default store (the
-    window on): 5 launches journaled with the daemon's log defaults,
-    ``checkpoint.save``, 5 more, then ``wal.recover`` on the card into a
+    window on): 4 launches journaled with the daemon's log defaults,
+    ``checkpoint.save``, 4 more, then ``wal.recover`` on the card into a
     second store; the uncrashed store is the reference. Returns (result,
     the daemon phase's boot: the snapshot and log directories, the
     records past the snapshot, and the recovered store's answers to the
     routes the daemon is held to, taken through an ``ApiServer``)."""
     from zipkin_tpu_torch import checkpoint, obs
-    from zipkin_tpu_torch.store.convert import state_to_numpy
     from zipkin_tpu_torch.store.torch_store import TorchSpanStore
     from zipkin_tpu_torch.tracegen import ColumnarTraceGen
     from zipkin_tpu_torch.wal import WriteAheadLog, recover
@@ -1689,7 +1736,6 @@ def durability_path(torch, K, dev, scale, device):
         wal_after = wal.stats()
         wal.close()
         store.wal = None
-        want_state = state_to_numpy(store.state)
         names = [f"svc-{i:04d}" for i in range(min(10, scale.services))]
 
         free_card(torch, device)
@@ -1711,8 +1757,8 @@ def durability_path(torch, K, dev, scale, device):
         if stats["replayed_records"] != n or stats["applied_seq"] != 2 * n:
             fail(f"durability path: replayed {stats}, expected {n} records "
                  f"up to seq {2 * n}")
-        _check_states_equal(want_state, state_to_numpy(rec.state),
-                            "durability path (recovered)")
+        check_card_states_equal(store.state, rec.state,
+                                "durability path (recovered)")
         if rec.counter_block() != store.counter_block():
             fail("durability path: the recovered counter block differs")
         rec.ensure_sketch_mirror()
@@ -1739,7 +1785,8 @@ def durability_path(torch, K, dev, scale, device):
         census_row = step_census_of(rec, "durability path")
         boot = {"work": work, "wal_dir": wal_dir, "ckpt": ckpt,
                 "records_past_snapshot": wal2.last_seq - n,
-                "answers": boot_answers(rec, tids, names)}
+                "answers": boot_answers(rec, tids, names,
+                                        scale.boot_traces)}
         load = stats["load"]
         result = {
             "launches_before_save": n, "launches_after_save": n,
@@ -1797,13 +1844,14 @@ DAEMON_PROFILE_S = 4
 DAEMON_BIND_TRIES = 3
 
 
-def boot_routes(tids, names):
-    """The routes a daemon boot is held to: 100 of the stream's traces,
-    and each service's by-name and by-annotation query."""
+def boot_routes(tids, names, n_traces: int):
+    """The routes a daemon boot is held to: ``n_traces`` of the stream's
+    traces, and each service's by-name and by-annotation query."""
     from zipkin_tpu_torch.ingest.receiver import _hex_id
 
-    step = max(1, len(tids) // 100)
-    routes = [(f"/api/trace/{_hex_id(t)}", {}) for t in tids[::step][:100]]
+    step = max(1, len(tids) // n_traces)
+    routes = [(f"/api/trace/{_hex_id(t)}", {})
+              for t in tids[::step][:n_traces]]
     for n in names:
         q = {"serviceName": n, "endTs": BOOT_END_TS, "limit": "20"}
         routes += [("/api/query", q),
@@ -1837,7 +1885,7 @@ def links_close(got, want) -> bool:
     return not want or moments_close(mat(want), mat(got))
 
 
-def boot_answers(store, tids, names):
+def boot_answers(store, tids, names, n_traces: int):
     """``boot_routes`` and the dependency links answered by ``store``
     through an ``ApiServer`` in this process (the JSON a socket
     carries)."""
@@ -1849,7 +1897,7 @@ def boot_answers(store, tids, names):
     api = ApiServer(service, self_trace=False, registry=obs.Registry())
     try:
         routes = [(path, params, *direct_json(api, path, params))
-                  for path, params in boot_routes(tids, names)]
+                  for path, params in boot_routes(tids, names, n_traces)]
         status, deps = direct_json(api, "/api/dependencies")
         return {"routes": routes, "links": other_links(deps)}
     finally:
@@ -3943,7 +3991,7 @@ def cold_tier_parity(torch, dev, scale, rehearse: bool):
         gen = ColumnarTraceGen(hot.dicts, n_services=scale.services,
                                n_span_names=scale.names, topology=True,
                                seed=24)
-        for i in range(scale.small_batches):
+        for i in range(scale.cold_parity_batches):
             batch, _, ix = gen.next_batch(
                 scale.small_traces, base_ts=WIN_BASE_US + i * PARITY_STEP_US)
             hot.write_batch(batch, ix)
@@ -4139,6 +4187,42 @@ def prepare_scribe_traffic(scale, kafka_at=None):
               "first_launch": first}
     return (calls, sampled, tids, debug, known, sent,
             time.perf_counter() - t, published, daemon)
+
+
+class EarlyTraffic:
+    """``prepare_scribe_traffic`` on a thread of its own, started a few
+    phases before the collector phase so its worker processes run
+    beside those phases: the Kafka launch is published to a broker
+    started here (its messages wait there for the collector phase's
+    consumer). ``result()`` waits for it; ``close()`` closes the
+    broker."""
+
+    def __init__(self, scale):
+        from zipkin_tpu_torch.testing.kafka_fake import FakeKafkaBroker
+
+        self.broker = FakeKafkaBroker().start()
+        self._out = self._err = None
+        self._thread = threading.Thread(target=self._run, args=(scale,),
+                                        name="traffic-prep", daemon=True)
+        self._thread.start()
+
+    def _run(self, scale):
+        try:
+            self._out = prepare_scribe_traffic(
+                scale, (self.broker.host, self.broker.port))
+        except BaseException as e:  # noqa: BLE001 — raised in result()
+            self._err = e
+
+    def result(self):
+        self._thread.join(timeout=1200)
+        if self._thread.is_alive():
+            fail("the collector phase's traffic was not made in 1200 s")
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+    def close(self):
+        self.broker.close()
 
 
 def send_calls(host, port, calls, n_clients: int = 4,
@@ -4417,7 +4501,7 @@ def kafka_drive(torch, K, scale, device, store, collector, clock, broker,
     return out
 
 
-def collector_path(torch, K, dev, scale, device, window):
+def collector_path(torch, K, dev, scale, device, window, traffic):
     """The daemon's ingest front end at full width (``example.py``:
     ``Collector(store, Sampler(1.0), max_queue=500, concurrency=10,
     self_trace=True)`` behind a ``ScribeReceiver(collector.accept,
@@ -4446,19 +4530,18 @@ def collector_path(torch, K, dev, scale, device, window):
                 HERE, "build", "zipkin_tpu_torch")):
         fail(f"collector path: the native codec did not load from the "
              f"port's build directory ({native.loaded_from})")
-    from zipkin_tpu_torch.testing.kafka_fake import FakeKafkaBroker
-
-    broker = FakeKafkaBroker().start()
+    broker = traffic.broker
+    t = time.perf_counter()
     try:
         (calls, sampled_calls, s_tids, s_debug, known, sent, prep_s,
-         published, daemon_traffic) = prepare_scribe_traffic(
-             scale, (broker.host, broker.port))
+         published, daemon_traffic) = traffic.result()
     except BaseException:
-        broker.close()
+        traffic.close()
         raise
     log(f"collector path: {sent} spans in {len(calls)} log calls, "
         f"{published[0]} spans in {published[1]} Kafka messages, and "
         f"{len(sampled_calls)} sampled calls prepared in {prep_s:.1f} s "
+        f"(waited {time.perf_counter() - t:.1f} s for them here) "
         f"(and the daemon phase's {daemon_traffic['sent']} spans in "
         f"{len(daemon_traffic['calls'])} calls)")
     oracle = InMemorySpanStore()
@@ -4606,7 +4689,7 @@ def collector_path(torch, K, dev, scale, device, window):
             rec.restore()
         collector._decode_segments_slow = decode_slow
         stop_server(server)
-        broker.close()
+        traffic.close()
         collector.close()
     n_sampled = len(s_tids)
     del store, collector
@@ -6311,8 +6394,8 @@ def _check_states_equal(a, b, what):
     for k, ref in a.items():
         got = b[k]
         if k == "counters":
-            if {c: int(v) for c, v in ref.items()} != {
-                    c: int(v) for c, v in got.items()}:
+            if {c: np.asarray(v).tolist() for c, v in ref.items()} != {
+                    c: np.asarray(v).tolist() for c, v in got.items()}:
                 fail(f"{what}: counters differ")
         elif k in float_leaves:
             ref64, got64 = ref.astype(np.float64), got.astype(np.float64)
@@ -6396,6 +6479,374 @@ def parity_phase(torch, dev, scale, rehearse: bool, paged: bool):
     return wp
 
 
+# ---------------------------------------------------------------------------
+# The sharded store: N shards on the one card
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARD_READ_REPS = 10
+
+
+def _timed_calls(torch, device, obj, name, into):
+    """Wraps ``obj.name`` so each call adds its seconds (synchronised
+    before and after on the card) to ``into``; returns the original."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        sync(torch, device)
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        sync(torch, device)
+        into.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, name, timed)
+    return fn
+
+
+def _by_service(store, arr, names):
+    """Rows of a [max_services, ...] leaf keyed by service name (the
+    fleet and a single store intern names in different orders)."""
+    d = store.dicts.services
+    return {n: arr[d.get(n)] for n in names}
+
+
+def _links_close(a, b) -> bool:
+    """Equal dependency links, counts exact, moments by stated
+    tolerance 2."""
+    from zipkin_tpu_torch.testing.crash import moments_close
+
+    def rows(deps):
+        return sorted((lk.parent, lk.child, tuple(
+            float(getattr(lk.duration_moments, f))
+            for f in ("n", "mean", "m2", "m3", "m4"))) for lk in deps.links)
+
+    ra, rb = rows(a), rows(b)
+    if [r[:2] for r in ra] != [r[:2] for r in rb]:
+        return False
+    return not ra or moments_close([r[2] for r in ra], [r[2] for r in rb])
+
+
+def _fleet_device_merge(torch, fleet):
+    """The device's cross-shard merge of the mirrored leaves: the
+    lifetime arrays by the catalog bundle (sums, HLL max), the window
+    cells by the epoch rule (max epoch, then the masked sums and max)."""
+    bundle = fleet._fetch_cat_bundle()
+    st = fleet.states
+
+    def stack(f):
+        return torch.stack([getattr(s, f) for s in st])
+
+    epochs = stack("win_epoch")
+    top = epochs.amax(0)
+    live = (epochs == top[None])[:, None, :, None]
+    out = [bundle[k] for k in ("svc_hist", "ann_svc_counts",
+                               "name_presence", "ann_value_counts",
+                               "bann_key_counts", "hll_traces")]
+    counts, sums, mm = stack("win_counts"), stack("win_sums"), stack("win_mm")
+    out += [top.cpu().numpy(),
+            torch.where(live, counts, 0).sum(0, dtype=counts.dtype)
+            .cpu().numpy(),
+            torch.where(live, sums, 0).sum(0, dtype=sums.dtype)
+            .cpu().numpy(),
+            torch.where(live, mm, torch.full_like(mm, -2**31)).amax(0)
+            .cpu().numpy()]
+    return out
+
+
+def _fleet_mirror_check(torch, fleet, what):
+    """The FleetMirror (fed by the commits' deltas) bitwise equal to the
+    device merge; then marked cold, resynced from the shards' leaves
+    (``ensure_sketch_mirror``), equal again."""
+    want = _fleet_device_merge(torch, fleet)
+    for stage in ("deltas", "resync"):
+        if stage == "resync":
+            fleet._fleet_mirror.mark_cold()
+            if fleet._fleet_mirror.warm:
+                fail(f"{what}: the fleet mirror stayed warm")
+        got = fleet.ensure_sketch_mirror().arrays()
+        for i, (a, b) in enumerate(zip(want, got)):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"{what}: the fleet mirror ({stage}) differs from the "
+                     f"device merge in array {i}")
+
+
+def _dispatcher_check(fleet, services, what):
+    """8 reader threads released at a barrier: at most 2 fused
+    cross-shard reads, answers equal to the serialized ones."""
+    svcs = services[:4]
+    end = 2**62
+    serial = ([fleet.service_duration_quantiles(s, [0.5, 0.99])
+               for s in svcs]
+              + [fleet.get_trace_ids_by_name(s, None, end, 10)
+                 for s in svcs])
+    fleet.dispatcher.drain()
+    fleet.dispatcher.window_s = 0.5
+    barrier = threading.Barrier(9)
+    got, errors = {}, []
+
+    def run(i):
+        try:
+            barrier.wait(timeout=120)
+            s = svcs[i % 4]
+            got[i] = (fleet.service_duration_quantiles(s, [0.5, 0.99])
+                      if i < 4 else
+                      fleet.get_trace_ids_by_name(s, None, end, 10))
+        except BaseException as e:  # noqa: BLE001 — failed below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,), name=f"fleet-{i}")
+               for i in range(8)]
+    for t in threads:
+        t.start()
+    before = fleet.collective_launches()
+    barrier.wait(timeout=120)
+    for t in threads:
+        t.join(timeout=300)
+    fleet.dispatcher.window_s = 0.0
+    if any(t.is_alive() for t in threads) or errors:
+        fail(f"{what}: a dispatcher reader failed or hung: {errors[:3]}")
+    fused = fleet.collective_launches() - before
+    if fused > 2:
+        fail(f"{what}: 8 concurrent reads took {fused} fused cross-shard "
+             f"reads, not <= 2")
+    if [got[i] for i in range(8)] != serial:
+        fail(f"{what}: dispatched answers differ from the serialized ones")
+    return {"fused_reads": fused, **fleet.dispatcher.stats()}
+
+
+def _read_ms(fleet, known_tids):
+    """Host ms of each read kind, ``SHARD_READ_REPS`` calls each."""
+    kinds = {
+        "bundle_catalog": fleet._fetch_cat_bundle,
+        "index": lambda: fleet._get_trace_ids_by_name_direct(
+            COLD_SERVICES[0], None, 2**62, 10),
+        "trace_fetch": lambda: fleet.get_spans_by_trace_ids(
+            known_tids[:10]),
+        "dependencies": fleet.get_dependencies,
+    }
+    out = {}
+    for kind, fn in kinds.items():
+        fn()
+        ms = []
+        for _ in range(SHARD_READ_REPS):
+            t = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[kind] = {"p50": float(np.percentile(ms, 50)),
+                     "p99": float(np.percentile(ms, 99))}
+    return out
+
+
+def _fleet_vs_single(torch, fleet, single, known, what):
+    """The fleet's reads equal the single store's: the known traces by
+    id, existence, durations, the catalogs, the summed count leaves and
+    the HLL registers, the dependency links, the index reads."""
+    from zipkin_tpu_torch.parallel.shard import global_summary
+
+    tids = [tr[0].trace_id for tr in known]
+    ask = tids + [12345]
+    checks = {
+        "spans by id": lambda s: s.get_spans_by_trace_ids(tids),
+        "traces_exist": lambda s: s.traces_exist(ask),
+        "durations": lambda s: s.get_traces_duration(ask),
+        "services": lambda s: s.get_all_service_names(),
+    }
+    for name, read in checks.items():
+        if read(fleet) != read(single):
+            fail(f"{what}: {name} differs from the single store's")
+    if len(fleet.get_spans_by_trace_ids(tids)) != len(tids):
+        fail(f"{what}: a known trace is missing")
+    services = sorted(single.get_all_service_names())
+    sample = COLD_SERVICES + services[:: max(1, len(services) // 20)]
+    end = 2**62
+    for svc in sample:
+        if fleet.get_span_names(svc) != single.get_span_names(svc):
+            fail(f"{what}: span names of {svc} differ")
+        if (fleet.service_duration_quantiles(svc, [0.5, 0.99])
+                != single.service_duration_quantiles(svc, [0.5, 0.99])):
+            fail(f"{what}: quantiles of {svc} differ")
+    nonempty = 0
+    for svc in COLD_SERVICES:
+        reads = [lambda s, lim=lim: s.get_trace_ids_by_name(svc, None, end,
+                                                            lim)
+                 for lim in (10, 100)]
+        reads += [lambda s, a=a, v=v: s.get_trace_ids_by_annotation(
+            svc, a, v, end, 100) for a, v in (
+                ("some custom annotation", None),
+                ("http.uri", b"/api/widgets"))]
+        for read in reads:
+            a = sorted((i.trace_id, i.timestamp) for i in read(fleet))
+            b = sorted((i.trace_id, i.timestamp) for i in read(single))
+            if a != b:
+                fail(f"{what}: an index read of {svc} differs")
+            nonempty += bool(a)
+    if nonempty < len(COLD_SERVICES):
+        fail(f"{what}: the known services' index reads are empty")
+    summary = {k: v.cpu().numpy()
+               for k, v in global_summary(fleet.states).items()}
+    st = single.state
+    for leaf in ("cms_trace_spans", "hll_traces"):
+        if not np.array_equal(summary[leaf], getattr(st, leaf).cpu().numpy()):
+            fail(f"{what}: the summed {leaf} differs from the single store's")
+    for leaf in ("svc_hist", "svc_span_counts", "ann_svc_counts"):
+        a = _by_service(fleet, summary[leaf], services)
+        b = _by_service(single, getattr(st, leaf).cpu().numpy(), services)
+        if any(not np.array_equal(a[n], b[n]) for n in services):
+            fail(f"{what}: the summed {leaf} differs from the single "
+                 f"store's")
+    if int(summary["spans_seen"]) != int(st.counters["spans_seen"]):
+        fail(f"{what}: spans_seen differs")
+    deps_f, deps_s = fleet.get_dependencies(), single.get_dependencies()
+    if not deps_s.links or not _links_close(deps_f, deps_s):
+        fail(f"{what}: the dependency links differ beyond tolerance 2")
+    return {"services_compared": len(sample),
+            "dependency_links": len(deps_s.links),
+            "known_traces": len(tids)}
+
+
+def _fleet_parity(torch, dev, scale, rehearse: bool):
+    """The fleet at 2 shards and capacity 2^14 (the other widths full)
+    on the card and on the CPU: equal ``sharded_states_to_numpy``
+    leaves (integers bitwise, moments by stated tolerance 2) and equal
+    fleet mirrors."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+    from zipkin_tpu_torch.store.convert import sharded_states_to_numpy
+
+    cfg = full_config(dev, scale.small_log2, scale.services)
+    applies = span_applies(scale, scale.shard_parity_applies,
+                           scale.small_traces, PARITY_STEP_US, seed=73)
+    out = []
+    for device in ("cpu" if rehearse else "cuda", "cpu"):
+        fleet = ShardedSpanStore(2, cfg, device=device,
+                                 registry=obs.Registry())
+        for spans in applies:
+            fleet.apply(spans)
+        out.append((sharded_states_to_numpy(fleet.states),
+                    fleet.ensure_sketch_mirror().arrays()))
+        fleet.close()
+    _check_states_equal(out[1][0], out[0][0], "sharded parity")
+    for a, b in zip(out[0][1], out[1][1]):
+        if not np.array_equal(a, b):
+            fail("sharded parity: the card and cpu fleet mirrors differ")
+    wp = out[0][0]["write_pos"]
+    log(f"sharded parity: cuda and cpu fleets equal after "
+        f"{int(wp.sum())} spans ({[int(x) for x in wp]} a shard, capacity "
+        f"{cfg.capacity})")
+    return int(wp.sum())
+
+
+def sharded_path(torch, K, dev, scale, device, smi):
+    """The sharded store (``parallel.ShardedSpanStore``) with ``SHARDS``
+    shards at BASELINE config #2 on the one card, beside one
+    ``TorchSpanStore`` at the same config: the same Span lists through
+    ``apply`` (launch units of 114,688 spans, then the known traces on
+    services of their own); K1, the claim and the write launch once a
+    shard step, ``SHARDS`` a unit, empty shards included; the fleet's
+    reads equal the single store's; the FleetMirror equals the device
+    merge (fed by deltas, then resynced); 8 dispatched readers take at
+    most 2 fused reads; a 2-shard fleet at 2^14 equals its CPU twin."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.columnar.encode import SpanCodec
+    from zipkin_tpu_torch.parallel import shard as shard_mod
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    what = "sharded path"
+    cfg = full_config(dev, scale.cap_log2, scale.services)
+    t = time.perf_counter()
+    codec = SpanCodec()
+    gen = ColumnarTraceGen(codec.dicts,
+                           n_services=scale.services - len(COLD_SERVICES),
+                           n_span_names=scale.names - len(COLD_OPS),
+                           topology=True, seed=71)
+    units = []
+    for i in range(scale.shard_units):
+        batch, _, _ = gen.next_batch(scale.batch_traces,
+                                     base_ts=WIN_BASE_US + i * WIN_STEP_US)
+        units.append(codec.decode(batch))
+    known = cold_known(scale.cold_known, 72, WIN_BASE_US + WIN_US)
+    setup_s = time.perf_counter() - t
+    free_card(torch, device)
+    fleet = shard_mod.ShardedSpanStore(SHARDS, cfg, device=device.type,
+                                       registry=obs.Registry())
+    apply_s, step_s, summary_s = [], [], []
+    orig_step = _timed_calls(torch, device, fleet.inner, "step", step_s)
+    orig_summary = _timed_calls(torch, device, shard_mod, "_summarize",
+                                summary_s)
+    K.reset_launches()
+    try:
+        for spans in units:
+            sync(torch, device)
+            t = time.perf_counter()
+            fleet.apply(spans)
+            sync(torch, device)
+            apply_s.append(time.perf_counter() - t)
+    finally:
+        fleet.inner.step = orig_step
+        shard_mod._summarize = orig_summary
+    launches = dict(K.LAUNCHES)
+    steps = sum(int(b["batches"]) for b in fleet.shard_counters())
+    n_units = len(units)
+    if device.type == "cuda":
+        for k in ("flat_histogram", "arena_claim", "arena_write"):
+            if launches[k] != SHARDS * n_units:
+                fail(f"{what}: {k} launched {launches[k]} times in "
+                     f"{n_units} units of {SHARDS} shards")
+    if steps != SHARDS * n_units:
+        fail(f"{what}: {steps} shard steps in {n_units} units")
+    fleet.apply([s for tr in known for s in tr])
+    single = TorchSpanStore(cfg, device=device.type,
+                            registry=obs.Registry())
+    for spans in units:
+        single.apply(spans)
+    single.apply([s for tr in known for s in tr])
+    sync(torch, device)
+    wp = [int(b["write_pos"]) for b in fleet.shard_counters()]
+    if max(wp) > cfg.capacity or single.counter_block()["ring_laps"]:
+        fail(f"{what}: a ring lapped ({wp}); the single store must hold "
+             f"every span")
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else 0)
+    compared = _fleet_vs_single(torch, fleet, single, known, what)
+    del single
+    free_card(torch, device)
+    _fleet_mirror_check(torch, fleet, what)
+    services = sorted(fleet.get_all_service_names())
+    dispatch = _dispatcher_check(
+        fleet, COLD_SERVICES[:2] + [s for s in services
+                                    if s not in COLD_SERVICES][:2], what)
+    reads = _read_ms(fleet, [tr[0].trace_id for tr in known])
+    sync(torch, device)
+    t = time.perf_counter()
+    shard_mod.global_summary(fleet.states)
+    sync(torch, device)
+    reduce_ms = (time.perf_counter() - t) * 1e3
+    spans_unit = [len(u) for u in units]
+    timed = sum(apply_s[1:])
+    per_unit = [{"host_encode_build_ms": (a - s) * 1e3,
+                 "steps_ms": (s - m) * 1e3, "summary_ms": m * 1e3}
+                for a, s, m in zip(apply_s, step_s, summary_s)]
+    fleet.close()
+    del fleet
+    free_card(torch, device)
+    parity_spans = _fleet_parity(torch, dev, scale, device.type != "cuda")
+    result = {
+        "shards": SHARDS, "units": n_units, "spans_per_unit": spans_unit,
+        "known_traces": len(known), "setup_decode_s": setup_s,
+        "apply_spans_per_s": (sum(spans_unit[1:]) / timed if timed
+                              else None),
+        "apply_s": apply_s, "per_unit": per_unit,
+        "reduction_ms": reduce_ms, "read_ms": reads,
+        "dispatcher": dispatch, "compared": compared,
+        "write_pos_by_shard": wp, "peak_device_bytes": peak,
+        "parity_spans": parity_spans, "card": smi,
+        "kernel_launches": launches, "ingest_steps": steps}
+    log(f"sharded path result ({smi}): " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true",
@@ -6464,12 +6915,15 @@ def main() -> int:
     del wrec
     cold = phase("cold_tier_path", cold_tier_path, torch, K, dev, scale,
                  device, wresult)
+    # The collector phase's traffic is made from here on, in worker
+    # processes beside the next phases.
+    traffic = EarlyTraffic(scale)
     cpaged = phase("cold_tier_paged", cold_tier_paged, torch, K, dev, scale,
                    device)
     phase("cold_tier_parity", cold_tier_parity, torch, dev, scale,
           args.rehearse)
     coll, daemon_traffic = phase("collector_path", collector_path, torch, K,
-                                 dev, scale, device, wresult)
+                                 dev, scale, device, wresult, traffic)
     query = phase("query_path", query_path, torch, K, dev, scale, device)
     phase_s["http (inside query_path)"] = query["http"]["s"]
     log(f"phase http (inside query_path): {query['http']['s']:.1f} s")
@@ -6478,6 +6932,8 @@ def main() -> int:
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
     phase("paged_parity", parity_phase, torch, dev, scale, args.rehearse,
           True)
+    sharded = phase("sharded_path", sharded_path, torch, K, dev, scale,
+                    device, smi)
     durable, boot = phase("durability_path", durability_path, torch, K,
                           dev, scale, device)
     daemon = phase("daemon_path", daemon_path, torch, K, scale, device,
@@ -6505,7 +6961,8 @@ def main() -> int:
                "fleet": fleet["kernel_launches"],
                "daemon": daemon["kernel_launches"],
                "replication": repl["kernel_launches"],
-               "kafka": coll["kafka"]["kernel_launches"]}
+               "kafka": coll["kafka"]["kernel_launches"],
+               "sharded": sharded["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -6520,7 +6977,8 @@ def main() -> int:
                      "fleet": fleet["ingest_steps"],
                      "daemon": daemon["ingest_steps"],
                      "replication": repl["ingest_steps"],
-                     "kafka": coll["kafka"]["ingest_steps"]}
+                     "kafka": coll["kafka"]["ingest_steps"],
+                     "sharded": sharded["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",

@@ -441,7 +441,7 @@ def test_sharded_and_tiered_snapshots_are_refused(tmp_path):
     checkpoint.save(_small_store(), str(path))
     meta = json.loads((path / "meta.json").read_text())
     (path / "meta.json").write_text(json.dumps(dict(meta, shards=4)))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         checkpoint.load(str(path), device="cpu")
     tiered, _ = _tiered_drive(CFG.capacity)
     checkpoint.save(tiered, str(path))

@@ -1150,3 +1150,108 @@ def test_cuda_sketch_apis_match_cpu(cuda):
                                        msg=f"output {k}")
         else:
             assert torch.equal(a, b), f"output {k}"
+
+
+# -- the sharded store on the card --------------------------------------------
+
+
+def _sharded_pair(cuda):
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+
+    cfg = _window_store(device="cpu").config
+    return [ShardedSpanStore(2, cfg, device=d, registry=obs.Registry())
+            for d in (cuda, "cpu")]
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_fleet_matches_cpu(cuda):
+    """A 2-shard fleet on the card against its CPU twin, the same
+    applies: every shard's state (moments to stated tolerance 2), the
+    fleet mirror, the reads; K1, the claim and the write launch once a
+    shard step, empty shards included."""
+    from zipkin_tpu_torch.testing.crash import state_mismatches
+
+    card, cpu = _sharded_pair(cuda)
+    try:
+        applies = _window_applies(6, 200)
+        before = dict(K.LAUNCHES)
+        for spans in applies:
+            card.apply(spans)
+            cpu.apply(spans)
+        torch.cuda.synchronize()
+        steps = sum(b["batches"] for b in card.shard_counters())
+        assert steps == 2 * len(applies)
+        for k in ("flat_histogram", "arena_claim", "arena_write"):
+            assert K.LAUNCHES[k] - before[k] == steps, k
+        for a, b in zip(cpu.states, card.states):
+            assert not state_mismatches(a, b, moments_tolerance=True)
+        for a, b in zip(cpu.ensure_sketch_mirror().arrays(),
+                        card.ensure_sketch_mirror().arrays()):
+            np.testing.assert_array_equal(a, b)
+        assert card.counters() == cpu.counters()
+        svcs = sorted(cpu.get_all_service_names())
+        assert card.get_all_service_names() == set(svcs)
+        for svc in svcs[:8]:
+            assert (card.get_trace_ids_by_name(svc, None, 2**62, 20)
+                    == cpu.get_trace_ids_by_name(svc, None, 2**62, 20))
+            assert card.get_span_names(svc) == cpu.get_span_names(svc)
+            assert (card.service_duration_quantiles(svc, [0.5, 0.99])
+                    == cpu.service_duration_quantiles(svc, [0.5, 0.99]))
+        tids = sorted({s.trace_id for s in applies[-1]})[:40]
+        assert card.get_spans_by_trace_ids(tids) == \
+            cpu.get_spans_by_trace_ids(tids)
+        assert card.get_traces_duration(tids) == \
+            cpu.get_traces_duration(tids)
+        a, b = card.get_dependencies(), cpu.get_dependencies()
+        assert [(l.parent, l.child, l.duration_moments.n)
+                for l in a.links] == [(l.parent, l.child,
+                                       l.duration_moments.n)
+                                      for l in b.links]
+    finally:
+        card.close()
+        cpu.close()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_dispatcher_fuses_reads(cuda):
+    """8 concurrent reads on a card fleet: at most 2 fused cross-shard
+    reads, answers equal to the serialized ones."""
+    import threading
+
+    card, cpu = _sharded_pair(cuda)
+    cpu.close()
+    try:
+        card.apply(_window_applies(1, 200)[0])
+        svcs = sorted(card.get_all_service_names())[:4]
+        serial = ([card.service_duration_quantiles(s, [0.5, 0.99])
+                   for s in svcs]
+                  + [card.get_trace_ids_by_name(s, None, 2**62, 10)
+                     for s in svcs])
+        card.dispatcher.window_s = 1.0
+        barrier = threading.Barrier(9)
+        got, errors = {}, []
+
+        def run(i):
+            try:
+                barrier.wait(timeout=120)
+                s = svcs[i % 4]
+                got[i] = (card.service_duration_quantiles(s, [0.5, 0.99])
+                          if i < 4 else
+                          card.get_trace_ids_by_name(s, None, 2**62, 10))
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        before = card.collective_launches()
+        barrier.wait(timeout=120)
+        for t in threads:
+            t.join(timeout=120)
+        assert not [t for t in threads if t.is_alive()] and not errors
+        assert card.collective_launches() - before <= 2
+        assert [got[i] for i in range(8)] == serial
+    finally:
+        card.close()

@@ -148,12 +148,12 @@ def test_port_memory_store_build_app_and_seed(daemons):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--shards", "2"], "item 6"),
+    (["--shards", "2"], "item 6b"),
     (["--ship-port", "1"], "requires --wal-dir"),
     (["--follow", "h1"], "wants HOST:PORT"),
 ])
 def test_port_refuses_unported_flags(argv, item):
-    """``--shards`` still waits for ROADMAP item 6. The replication flags
+    """``--shards`` still waits for ROADMAP item 6b. The replication flags
     are ported and refuse only what the reference refuses (its messages),
     before anything is built or connected."""
     args = example.build_parser().parse_args(["--platform", "cpu"] + argv)

@@ -317,7 +317,7 @@ def test_sharded_log_is_refused():
         def replay_units(self, from_seq):
             return iter(())
 
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         replay_into(build_crash_store(device="cpu"), Sharded())
 
 

@@ -29,8 +29,10 @@ segment manifest) and one immutable blob per segment under
 not written again. ``load`` then returns a ``TieredSpanStore`` whose
 cold tier continues contiguously from the snapshot's frontier.
 
-Not here yet: sharded snapshots (``meta["shards"]``, the sharding
-slice); ``load`` refuses them by name.
+Not here yet: sharded snapshots (``meta["shards"]``; ROADMAP Queue 1,
+item 6b). ``load`` refuses them by name, and ``save`` of a
+``parallel.ShardedSpanStore`` raises at its pipeline drain, which names
+the same item.
 """
 
 from __future__ import annotations
@@ -590,8 +592,9 @@ def load(path: str, device="cuda", config_defaults=None,
         meta = json.load(f)
     if meta.get("shards"):
         raise NotImplementedError(
-            "sharded snapshots restore into sharded stores, which the "
-            "port does not have yet (ROADMAP Queue 1, item 7)")
+            "sharded snapshots restore through the sharded checkpoint, "
+            "which the port does not have yet (ROADMAP Queue 1, item "
+            "6b: sharded durability)")
     cfg_map = dict(meta["config"])
     for k, v in (config_defaults or {}).items():
         cfg_map.setdefault(k, v)

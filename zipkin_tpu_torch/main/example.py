@@ -43,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the device store")
     p.add_argument("--shards", type=int, default=0,
                    help="serve from an N-shard sharded store (0 = "
-                        "single-device store); not ported yet: any "
-                        "other value refuses (ROADMAP Queue 1, item 6)")
+                        "single-device store); not wired yet: any "
+                        "other value refuses (ROADMAP Queue 1, item 6b)")
     p.add_argument("--capacity", type=int, default=1 << 16,
                    help="span ring capacity (device store)")
     p.add_argument("--layout", default="ring",
@@ -197,8 +197,9 @@ def refuse_unported(args) -> None:
     yet, naming the ROADMAP item each waits for; never ignore them."""
     if args.shards:
         raise SystemExit(
-            "--shards: the sharded store and its group-commit log are "
-            "not ported yet (ROADMAP Queue 1, item 6: sharding)")
+            "--shards: the daemon does not serve the sharded store "
+            "until its group-commit log and checkpoint are ported "
+            "(ROADMAP Queue 1, item 6b: sharded durability)")
 
 
 def build_app(args):

@@ -1,9 +1,9 @@
 """Host-mirrored monoid sketches, torch side.
 
 The port's copy of ``SketchMirror`` and ``SketchDelta`` from
-``zipkin_tpu/store/mirror.py`` (the sharded store's ``FleetMirror``
-comes with the sharding slice). The fused ingest step maintains six
-LIFETIME aggregate arrays on the device (per-service duration
+``zipkin_tpu/store/mirror.py``, and the sharded store's
+``FleetMirror``, the lazily merged fleet view over its per-shard
+mirrors. The fused ingest step maintains six LIFETIME aggregate arrays on the device (per-service duration
 log-histogram, annotation-host service counts, span-name presence,
 top-annotation and top-binary-key count matrices, the distinct-trace
 HyperLogLog) and, with the window on, the windowed Moments-sketch
@@ -319,3 +319,141 @@ class SketchMirror:
                     self.bann_key_counts.copy(), self.hll_traces.copy(),
                     self.win_epoch.copy(), self.win_counts.copy(),
                     self.win_sums.copy(), self.win_mm.copy())
+
+
+class FleetMirror:
+    """Lazily merged fleet view over N per-shard ``SketchMirror`` twins
+    — the sharded store's zero-dispatch sketch tier.
+
+    Every lifetime aggregate is a monoid, so the fleet value is the
+    shard values folded by the SAME reduction the sharded store's
+    cross-shard reads use: integer sums for the count arrays,
+    elementwise max for the HLL registers. Integer adds are
+    order-independent, so the host fold is bitwise-equal to the
+    device's cross-shard reduction.
+
+    The windowed arena needs the epoch rule, not a plain sum: shards
+    rotate slot ``w`` independently (each shard's epoch war runs on its
+    own ingest), so a slot's merged epoch is the max over shards, and
+    only shards AT that epoch contribute counts/sums (a shard still on
+    an older epoch received no spans for the newer window — its slot
+    holds a different, dead window). min/max cells fold by
+    ``np.maximum`` over the contributing shards (I32_MIN fill loses to
+    any real value). This is exactly the single-store value: every span
+    landed on exactly one shard, and integer adds commute.
+
+    The merge is rebuilt only when ``version_fn()`` (the store's commit
+    frontier) moves — steady-state reads are dict lookups into a cached
+    ``SketchMirror``, zero device traffic and zero re-merges."""
+
+    def __init__(self, config, mirrors, version_fn):
+        self.config = config
+        self.gamma = mirrors[0].gamma if mirrors else (
+            (1.0 + config.quantile_alpha) / (1.0 - config.quantile_alpha))
+        self._mirrors = list(mirrors)
+        self._version_fn = version_fn
+        # Rank BELOW the shard mirrors' 50: the refresh calls
+        # ``SketchMirror.arrays()`` (which takes each mirror's lock)
+        # while holding this one.
+        self._lock = threading.Lock()  # lock-order: 48 fleet-mirror
+        self._merged = None  # guarded-by: _lock
+        self._merged_version = None  # guarded-by: _lock
+
+    @property
+    def warm(self) -> bool:
+        return all(m.warm for m in self._mirrors)
+
+    def mark_cold(self) -> None:
+        for m in self._mirrors:
+            m.mark_cold()
+        with self._lock:
+            self._merged = None
+            self._merged_version = None
+
+    def _merge_locked(self) -> "SketchMirror":  # called-under: _lock
+        version = self._version_fn()
+        if (self._merged is not None
+                and self._merged_version == version):
+            return self._merged
+        snaps = [m.arrays() for m in self._mirrors]
+        out = SketchMirror(self.config)
+        (out.svc_hist, out.ann_svc_counts, out.name_presence,
+         out.ann_value_counts, out.bann_key_counts) = (
+            sum(np.asarray(s[i]) for s in snaps)
+            for i in range(5)
+        )
+        out.hll_traces = np.maximum.reduce([s[5] for s in snaps])
+        if self.config.window_enabled and snaps:
+            epochs = np.stack([s[6] for s in snaps])  # [n, Wn]
+            merged_epoch = epochs.max(axis=0)
+            live = epochs == merged_epoch[None, :]  # [n, Wn]
+            counts = np.stack([s[7] for s in snaps])  # [n, S, Wn, f]
+            sums = np.stack([s[8] for s in snaps])
+            mm = np.stack([s[9] for s in snaps])
+            mask = live[:, None, :, None]
+            out.win_epoch = merged_epoch
+            out.win_counts = np.where(mask, counts, 0).sum(
+                axis=0, dtype=counts.dtype)
+            out.win_sums = np.where(mask, sums, 0).sum(
+                axis=0, dtype=sums.dtype)
+            out.win_mm = np.where(mask, mm, win.I32_MIN).max(axis=0)
+        self._merged = out
+        self._merged_version = version
+        return out
+
+    def _view(self) -> "SketchMirror":
+        with self._lock:
+            return self._merge_locked()
+
+    # Lifetime fold counters: plain sums over the shard mirrors (each
+    # span folded into exactly one shard's arena).
+    @property
+    def win_spans_total(self) -> int:
+        return sum(m.win_spans_total for m in self._mirrors)
+
+    @property
+    def win_errors_total(self) -> int:
+        return sum(m.win_errors_total for m in self._mirrors)
+
+    # -- SketchMirror reader surface (engine sketch tier) ---------------
+
+    def service_presence(self) -> np.ndarray:
+        return self._view().ann_svc_counts > 0
+
+    def name_row(self, svc: int) -> np.ndarray:
+        return self._view().name_presence[svc].copy()
+
+    def hist_row(self, svc: int) -> np.ndarray:
+        return self._view().svc_hist[svc].copy()
+
+    def ann_value_row(self, svc: int) -> np.ndarray:
+        return self._view().ann_value_counts[svc].copy()
+
+    def bann_key_row(self, svc: int) -> np.ndarray:
+        return self._view().bann_key_counts[svc].copy()
+
+    def hll_registers(self) -> np.ndarray:
+        return self._view().hll_traces.copy()
+
+    def window_row(self, svc: int):
+        v = self._view()
+        return (v.win_epoch.copy(), v.win_counts[svc].copy(),
+                v.win_sums[svc].copy(), v.win_mm[svc].copy())
+
+    def window_arrays(self):
+        v = self._view()
+        return (v.win_epoch.copy(), v.win_counts.copy(),
+                v.win_sums.copy(), v.win_mm.copy())
+
+    def window_live_cells(self) -> int:
+        v = self._view()
+        return int(((v.win_counts[:, :, 0] > 0)
+                    & (v.win_epoch >= 0)[None, :]).sum())
+
+    def arrays(self) -> Sequence[np.ndarray]:
+        v = self._view()
+        return (v.svc_hist.copy(), v.ann_svc_counts.copy(),
+                v.name_presence.copy(), v.ann_value_counts.copy(),
+                v.bann_key_counts.copy(), v.hll_traces.copy(),
+                v.win_epoch.copy(), v.win_counts.copy(),
+                v.win_sums.copy(), v.win_mm.copy())

@@ -81,6 +81,9 @@ class IngestUnit(NamedTuple):
     chained: bool
     wal_seq: Optional[int] = None
     sketch: Optional[object] = None
+    # Sharded units only (parallel/shard.ShardedSpanStore): max spans
+    # any shard's part carries, taken from the host batches.
+    incoming: Optional[int] = None
     reclaims: tuple = ()
     staged: Optional[tuple] = None
 

@@ -78,8 +78,9 @@ def replay_into(store, wal, from_seq: Optional[int] = None) -> dict:
     as live ingest would). Returns replay stats."""
     if hasattr(wal, "replay_units"):
         raise NotImplementedError(
-            "sharded logs replay into sharded stores, which the port "
-            "does not have yet (ROADMAP Queue 1, item 7)")
+            "sharded logs replay into sharded stores through the "
+            "sharded replay, which the port does not have yet (ROADMAP "
+            "Queue 1, item 6b: sharded durability)")
     hot = getattr(store, "hot", store)
     if from_seq is None:
         from_seq = int(getattr(hot, "_wal_applied", 0))
