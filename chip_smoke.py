@@ -231,7 +231,17 @@ nvcc per source, started together), then
    and replay seconds and health, the scribe spans/s and ack ms of the
    unprofiled half (the profiled half beside them, as the profiler's
    cost), the follower's ready, catch-up and exit seconds, and the
-   seconds from SIGTERM to exit;
+   seconds from SIGTERM to exit. Beside it, on a thread of its own, a
+   sharded daemon (``--use-pallas --shards 2 --wal-dir --checkpoint``)
+   at the full configuration's widths with a 2^20 span ring a shard:
+   boot A restores an empty 2-shard snapshot (the daemon's flags set no
+   widths) with a fresh log, takes the same Scribe traffic from four
+   clients (its profile must show one claim, one write and one flat
+   histogram a shard step: the ``sharded_daemon`` entry of
+   ``launches_by_path``), reads the known traces back and is SIGKILLed;
+   boot B replays the whole log, reads them back, and SIGTERM saves and
+   ends it with exit 0; boot C restores that snapshot, replays at most
+   the lineage flush and reads them back;
 17. replication (``replication_path``, full width, the window on): a
    primary with a WAL at the daemon's fsync interval and lineage at 1
    in 64 serves a ``ShipServer`` on 127.0.0.1; a warm standby on the
@@ -272,7 +282,24 @@ nvcc per source, started together), then
    2^14 must equal its CPU twin. It prints apply spans/s after the
    first unit, each unit's ms split (host encode and build, the shard
    steps, the summary), the reduction's ms, read ms p50/p99 by kind and
-   the peak device memory, beside the card's name and power limit.
+   the peak device memory, beside the card's name and power limit;
+19. sharded durability (``sharded_durability_path``): a 2-shard
+   ``ShardedSpanStore`` at the full configuration journals into a
+   ``ShardedWal`` at fsync ``batch`` through ``pipelined(depth=4)``: 2
+   of ``sharded_path``'s units, ``checkpoint.save`` (every leaf stacked
+   on the host, shard by shard), 1 more unit with 100 known traces,
+   ``wal_sync``; then a crash (the log closed, no save) and
+   ``wal.recover`` on the card, which must replay exactly that one
+   record and land the uncrashed fleet (every shard's leaves compared
+   on the card, the frontier, the applied sequence, the clocks, the
+   known traces' reads); K1, the claim and the write must launch once a
+   shard step, journaled and replayed (the ``sharded_durability`` entry
+   of ``launches_by_path``). A 2-shard fleet at 2^14 then journals 3
+   applies, its epoch log's last segment is cut mid-record, and the
+   reopened log must align to the 2 complete units and replay into the
+   fleet of those two. It prints the journaled ``apply`` spans/s, the
+   journal's ms a unit, save s by part and bytes, load s by part,
+   replay s and spans/s and the alignment's seconds.
 
 ``--hist-variants`` also builds copies of the flat-histogram kernel with
 one design constant changed each and reads their device time on the
@@ -374,6 +401,7 @@ class Scale:
             self.cold_log2 = self.cap_log2
             self.shard_units, self.shard_parity_applies = 2, 4
             self.cold_parity_batches = self.small_batches
+            self.shard_daemon_log2 = self.cap_log2
         else:
             self.cap_log2, self.services, self.names = 22, 1000, 2048
             self.batch_traces = 16384  # 114,688 spans a launch
@@ -420,18 +448,24 @@ class Scale:
             # The fleet phase's overhead rounds: 3 journaled launches a
             # round (~0.45 s each), three rounds a store after a warm one.
             self.fleet_round = 3
-            # The cold tier at a 2^20 span ring (the other widths of the
-            # full configuration kept): its sealed capture window is ~1 M
-            # spans, not the 2^22 ring's ~4.13 M, whose host seal took
-            # 154-208 s of the script's 1,200 s.
-            self.cold_log2 = 20
-            # The sharded phase: 4 units of 114,688 spans, each one apply
-            # of Span objects, ~28,672 spans a shard step.
-            self.shard_units, self.shard_parity_applies = 4, 2
+            # The cold tier at a 2^19 span ring (the other widths of the
+            # full configuration kept): its sealed capture window is
+            # ~0.5 M spans, not the 2^22 ring's ~4.13 M, whose host seal
+            # took 154-208 s of the script's 1,200 s (2^20 before the
+            # sharded durability phase).
+            self.cold_log2 = 19
+            # The sharded phase: 3 units of 114,688 spans (4 before the
+            # sharded durability phase, which reuses them), each one
+            # apply of Span objects, ~28,672 spans a shard step.
+            self.shard_units, self.shard_parity_applies = 3, 2
             # The cold tier's card-vs-cpu parity: 9 batches of 3,584
             # spans, ~2 laps of the 2^14 ring, two segments (18 before
             # the sharded phase).
             self.cold_parity_batches = 9
+            # The sharded daemon: config #2's widths, a 2^20 span ring a
+            # shard (a depth cut from 2^22: its three boots restore and
+            # save the fleet).
+            self.shard_daemon_log2 = 20
         # The replication phase: 3 journaled launches (4 before the Kafka
         # drive) and the known traces shipped to a standby and a replica.
         self.replication_launches = 3
@@ -458,6 +492,10 @@ class Scale:
         # A daemon boot is held to this many of the stream's traces
         # (100 before the sharded phase) and each service's queries.
         self.boot_traces = 50
+        # The sharded daemon's boots read back this many of the 100 known
+        # traces (each read is an API self-trace span, one journaled unit
+        # of the fleet) and the known services' queries.
+        self.shard_daemon_known = 25
 
 
 # ---------------------------------------------------------------------------
@@ -1696,15 +1734,7 @@ def durability_path(torch, K, dev, scale, device):
         # The journal's host seconds a launch (encode_unit + deflate +
         # the log's write), to split the journaled launch.
         journal_s = []
-        journal = store._journal_group
-
-        def timed_journal(group):
-            t = time.perf_counter()
-            seq = journal(group)
-            journal_s.append(time.perf_counter() - t)
-            return seq
-
-        store._journal_group = timed_journal
+        _timed_method(store, "_journal_group", journal_s)
         n = scale.durability_launches
         tids = []
 
@@ -2233,7 +2263,199 @@ def profile_during(base, what):
     return th, got
 
 
-def daemon_path(torch, K, scale, device, boot, traffic):
+class Background:
+    """``fn(*args)`` on a thread of its own; ``result()`` waits for it
+    and raises what it raised."""
+
+    def __init__(self, name, fn, *args):
+        self._out = self._err = None
+        self._thread = threading.Thread(target=self._run, args=(fn, args),
+                                        name=name, daemon=True)
+        self._thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self._out = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — raised in result()
+            self._err = e
+
+    def result(self, timeout_s: float):
+        self._thread.join(timeout=timeout_s)
+        if self._thread.is_alive():
+            fail(f"{self._thread.name} did not end in {timeout_s} s")
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+def empty_fleet_snapshot(dev, scale):
+    """An empty 2-shard snapshot at the full configuration's widths with
+    a ``2^shard_daemon_log2`` span ring a shard, saved from a fleet on
+    the host into a directory of its own: the sharded daemon's first
+    boot restores it (the daemon's flags set no widths, and a snapshot's
+    geometry wins over them). Returns (the directory, seconds)."""
+    from zipkin_tpu_torch import checkpoint, obs
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+
+    t = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="zipkin-sharded-daemon-")
+    try:
+        cfg = full_config(dev, scale.shard_daemon_log2, scale.services)
+        empty = ShardedSpanStore(2, cfg, device="cpu",
+                                 registry=obs.Registry())
+        try:
+            checkpoint.save(empty, os.path.join(work, "ckpt"))
+        finally:
+            empty.close()
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    return work, time.perf_counter() - t
+
+
+def sharded_daemon(torch, scale, device, traffic, env, live, snapshot):
+    """The daemon with ``--shards 2 --wal-dir --checkpoint`` (and
+    ``--use-pallas``) as a child, its two shards on the one card at the
+    full configuration's widths with a ``2^shard_daemon_log2`` span ring
+    a shard. The daemon's flags set no widths, so boot A restores the
+    empty 2-shard snapshot ``snapshot`` (a ``Background`` running
+    ``empty_fleet_snapshot``; a snapshot's geometry wins over the flags)
+    and starts with an empty fresh log: it replays nothing, takes the
+    daemon phase's Scribe traffic from 4 clients (one launch, 100 known
+    traces, a corrupt entry; the first half beside the profiler's
+    warm-up, the second under ``POST /debug/profile``, whose kernels
+    must be one claim, one write and one flat histogram a shard step),
+    reads ``shard_daemon_known`` of the known traces back equal to an
+    oracle's, and is SIGKILLed. Boot B replays the whole log, reads them
+    back, and SIGTERM saves and ends it with exit 0; boot C restores
+    that snapshot, replays at most the lineage flush that follows the
+    shutdown's save, and reads them back."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.api import ApiServer
+    from zipkin_tpu_torch.query import QueryService
+    from zipkin_tpu_torch.store.memory import InMemorySpanStore
+
+    what = "sharded daemon"
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    work, snapshot_s = snapshot.result(DAEMON_BOOT_S)
+    ckpt, wal_dir = os.path.join(work, "ckpt"), os.path.join(work, "wal")
+    known = traffic["known"][:scale.shard_daemon_known]
+    oracle = InMemorySpanStore()
+    for tr in traffic["known"]:
+        oracle.apply(tr)
+    oracle_svc = QueryService(oracle, coalesce_window_s=0.0)
+    oracle_api = ApiServer(oracle_svc, self_trace=False,
+                           registry=obs.Registry())
+    out = {"shards": 2, "capacity_a_shard": 1 << scale.shard_daemon_log2,
+           "empty_snapshot_s": snapshot_s}
+    try:
+        flags = ["--host", "127.0.0.1", "--use-pallas", "--shards", "2",
+                 "--wal-dir", wal_dir, "--checkpoint", ckpt,
+                 "--checkpoint-interval", "3600"]
+        if not on_card:
+            flags += ["--platform", "cpu"]
+
+        # -- boot A: the empty fleet, Scribe traffic, then SIGKILL ---------
+        d, base, scribe, out["boot_a"] = boot_daemon(
+            torch, device, flags, env, "sharded boot A", live)
+        if out["boot_a"]["replayed_records"]:
+            fail(f"{what} boot A: replayed records from a fresh log")
+        warm = warm_profiler(base, what)
+        calls = traffic["calls"]
+        half = len(calls) // 2
+        corrupt = base64.b64encode(CORRUPT_ENTRY).decode()
+        spans = [sum(m != corrupt for c in part for _, m in c)
+                 for part in (calls[:half], calls[half:])]
+        t0 = time.perf_counter()
+        acks, retries = send_calls("127.0.0.1", scribe, calls[:half],
+                                   what=what)
+        first_s = time.perf_counter() - t0
+        out["profiler_warmup_s"] = warm()
+        cap, got = profile_during(base, what)
+        t1 = time.perf_counter()
+        more, more_retries = send_calls("127.0.0.1", scribe, calls[half:],
+                                        what=what)
+        second_s = time.perf_counter() - t1
+        cap.join(timeout=300)
+        status, _, body = got.get("resp", (None, None, b"{}"))
+        if status != 200:
+            fail(f"{what}: /debug/profile answered {status} {body[:200]!r}")
+        prof = json.loads(body)
+        try:
+            with open(os.path.join(prof["profileDir"], "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            shutil.rmtree(prof["profileDir"], ignore_errors=True)
+        seq = kernel_sequence(events)
+        steps = steps_in(seq, what) if on_card else 0
+        if on_card and steps < 1:
+            fail(f"{what}: the profile holds no whole shard step "
+                 f"({len(events)} events)")
+        launches = {"flat_histogram": seq.count("H"),
+                    "arena_claim": seq.count("C"),
+                    "arena_write": seq.count("W"), "paged_page_gather": 0}
+        t = time.perf_counter()
+        n_known = known_reads_equal(base, oracle_api, known,
+                                    f"{what} boot A")
+        out["traffic"] = {
+            "spans": spans[0], "send_s": first_s,
+            "beside_profiler_warmup": True,
+            "scribe_spans_per_s": spans[0] / first_s,
+            "ack_ms_p50": float(np.percentile(acks, 50)),
+            "ack_ms_p99": float(np.percentile(acks, 99)),
+            "profiled_half": {
+                "spans": spans[1], "send_s": second_s,
+                "scribe_spans_per_s": spans[1] / second_s},
+            "try_later": retries + more_retries,
+            "profiled_steps": steps, "profiled_launches": launches,
+            "known_reads": n_known,
+            "known_reads_s": time.perf_counter() - t}
+        d.signal(signal.SIGKILL)
+        d.wait_exit(120)
+
+        # -- boot B: the whole log replays; SIGTERM saves ----------------
+        d, base, scribe, out["boot_b"] = boot_daemon(
+            torch, device, flags, env, "sharded boot B", live)
+        b = out["boot_b"]
+        if b["replayed_records"] < 1:
+            fail(f"{what} boot B: nothing replayed after the SIGKILL")
+        b["replayed_spans_per_s"] = (b["replayed_spans"] / b["replay_s"]
+                                     if b["replay_s"] else None)
+        known_reads_equal(base, oracle_api, known, f"{what} boot B")
+        t = time.perf_counter()
+        d.signal(signal.SIGTERM)
+        rc = d.wait_exit(DAEMON_EXIT_S)
+        out["sigterm_to_exit_s"] = time.perf_counter() - t
+        if rc != 0 or any("Traceback" in line for _, line in d.lines):
+            fail(f"{what}: exit {rc} after SIGTERM; its output:\n"
+                 f"{d.tail()}")
+
+        # -- boot C: the saved snapshot --------------------------------------
+        d, base, scribe, out["boot_c"] = boot_daemon(
+            torch, device, flags, env, "sharded boot C", live)
+        # The shutdown flushes the lineage tracker after its checkpoint,
+        # so at most that one record lies past the snapshot.
+        if out["boot_c"]["replayed_records"] > 1:
+            fail(f"{what} boot C: replayed "
+                 f"{out['boot_c']['replayed_records']} records after a "
+                 f"graceful shutdown")
+        known_reads_equal(base, oracle_api, known, f"{what} boot C")
+        d.signal(signal.SIGKILL)
+        d.wait_exit(120)
+    finally:
+        for d in live:
+            d.kill()
+        oracle_svc.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["kernel_launches"] = launches
+    out["ingest_steps"] = steps
+    out["s"] = time.perf_counter() - t_phase
+    log(f"{what} result: " + json.dumps(out))
+    return out
+
+
+def daemon_path(torch, K, scale, device, boot, traffic, snapshot):
     """The port's daemon as a process, ``python -m zipkin_tpu_torch.main.
     example``, booted from ``durability_path``'s full-width snapshot and
     log with the daemon's flags (``--use-pallas --cold-tier
@@ -2249,7 +2471,8 @@ def daemon_path(torch, K, scale, device, boot, traffic):
     shutdown saved reads the known traces back; 20 more known traces
     are acked and the child is SIGKILLed; boot C replays the tail and
     reads back every acked trace. Meanwhile ``main.tracegen`` runs as
-    two children (the card store and ``--memory-store``), each exit 0.
+    two children (the card store and ``--memory-store``), each exit 0,
+    and ``sharded_daemon`` runs its three boots on a thread of its own.
     The children load the kernels this script built (nvcc is out of
     their reach) and leave the libraries as they were."""
     import glob
@@ -2301,7 +2524,11 @@ def daemon_path(torch, K, scale, device, boot, traffic):
     oracle_svc = QueryService(oracle, coalesce_window_s=0.0)
     oracle_api = ApiServer(oracle_svc, self_trace=False,
                            registry=obs.Registry())
-    live = []
+    live, sharded_live = [], []
+    # The sharded daemon's boots run beside this daemon's (they share
+    # the card and the host).
+    sharded = Background("sharded-daemon", sharded_daemon, torch, scale,
+                         device, traffic, env, sharded_live, snapshot)
     out = {"spans_sent": traffic["sent"], "log_calls": len(traffic["calls"])}
     try:
         # -- boot A: the durability snapshot plus the log's tail ---------
@@ -2477,12 +2704,13 @@ def daemon_path(torch, K, scale, device, boot, traffic):
                     "-> OK"):
                 fail(f"tracegen {extra}: exit {proc.returncode}:\n{text}")
             out["tracegen"][" ".join(extra) or "card"] = lines[-1]
+        out["sharded"] = sharded.result(2 * DAEMON_BOOT_S + DAEMON_EXIT_S)
         now = {p: os.stat(p).st_mtime_ns for p in glob.glob(
             os.path.join(HERE, "build", "zipkin_tpu_torch", "*.so"))}
         if now != libs:
             fail("daemon path: a child rebuilt or added a kernel library")
     finally:
-        for d in live:
+        for d in live + sharded_live:
             d.kill()
         for _, proc in tracegens:
             if proc.poll() is None:
@@ -4201,25 +4429,12 @@ class EarlyTraffic:
         from zipkin_tpu_torch.testing.kafka_fake import FakeKafkaBroker
 
         self.broker = FakeKafkaBroker().start()
-        self._out = self._err = None
-        self._thread = threading.Thread(target=self._run, args=(scale,),
-                                        name="traffic-prep", daemon=True)
-        self._thread.start()
-
-    def _run(self, scale):
-        try:
-            self._out = prepare_scribe_traffic(
-                scale, (self.broker.host, self.broker.port))
-        except BaseException as e:  # noqa: BLE001 — raised in result()
-            self._err = e
+        self._job = Background("the collector phase's traffic",
+                               prepare_scribe_traffic, scale,
+                               (self.broker.host, self.broker.port))
 
     def result(self):
-        self._thread.join(timeout=1200)
-        if self._thread.is_alive():
-            fail("the collector phase's traffic was not made in 1200 s")
-        if self._err is not None:
-            raise self._err
-        return self._out
+        return self._job.result(1200)
 
     def close(self):
         self.broker.close()
@@ -6504,6 +6719,20 @@ def _timed_calls(torch, device, obj, name, into):
     return fn
 
 
+def _timed_method(obj, name, into):
+    """Wraps ``obj.name`` so each call adds its host seconds to
+    ``into``."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        into.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, name, timed)
+
+
 def _by_service(store, arr, names):
     """Rows of a [max_services, ...] leaf keyed by service name (the
     fleet and a single store intern names in different orders)."""
@@ -6746,7 +6975,9 @@ def sharded_path(torch, K, dev, scale, device, smi):
     shard step, ``SHARDS`` a unit, empty shards included; the fleet's
     reads equal the single store's; the FleetMirror equals the device
     merge (fed by deltas, then resynced); 8 dispatched readers take at
-    most 2 fused reads; a 2-shard fleet at 2^14 equals its CPU twin."""
+    most 2 fused reads; a 2-shard fleet at 2^14 equals its CPU twin.
+    Returns (result, the decoded units, for
+    ``sharded_durability_path``)."""
     from zipkin_tpu_torch import obs
     from zipkin_tpu_torch.columnar.encode import SpanCodec
     from zipkin_tpu_torch.parallel import shard as shard_mod
@@ -6844,7 +7075,250 @@ def sharded_path(torch, K, dev, scale, device, smi):
         "parity_spans": parity_spans, "card": smi,
         "kernel_launches": launches, "ingest_steps": steps}
     log(f"sharded path result ({smi}): " + json.dumps(result))
-    return result
+    return result, units
+
+
+def _fleet_reads(fleet, tids):
+    """The reads a recovered fleet is held to: the known traces by id,
+    their durations and existence, and each known service's by-name
+    query."""
+    end = 2**62
+    return {
+        "traces": fleet.get_spans_by_trace_ids(tids),
+        "durations": fleet.get_traces_duration(tids),
+        "exist": sorted(fleet.traces_exist(tids)),
+        "by_name": {svc: fleet.get_trace_ids_by_name(svc, None, end, 20)
+                    for svc in COLD_SERVICES},
+        "services": sorted(fleet.get_all_service_names()),
+    }
+
+
+def _cut_drive(torch, dev, scale, device, work):
+    """A 2-shard fleet at 2^14 journals 3 applies into a ShardedWal at
+    fsync batch; the epoch log's last segment is cut mid-record and the
+    log reopened: alignment must cut the shard logs back to the complete
+    prefix (``aligned_records_cut`` > 0) and the replay must land the
+    fleet of the first two applies."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+    from zipkin_tpu_torch.wal import ShardedWal, replay_into
+
+    what = "sharded durability cut drive"
+    cfg = full_config(dev, scale.small_log2, scale.services)
+    applies = span_applies(scale, 3, scale.small_traces, PARITY_STEP_US,
+                           seed=75)
+    wal_dir = os.path.join(work, "cut-wal")
+    made = []
+
+    def fleet():
+        f = ShardedSpanStore(2, cfg, device=device.type,
+                             registry=obs.Registry())
+        made.append(f)
+        return f
+
+    try:
+        a = fleet()
+        wal = ShardedWal(wal_dir, 2, fsync="batch", registry=obs.Registry())
+        a.attach_wal(wal)
+        for spans in applies:
+            a.apply(spans)
+        wal.close()
+        seg = sorted(os.listdir(os.path.join(wal_dir, "epoch")))[-1]
+        seg = os.path.join(wal_dir, "epoch", seg)
+        os.truncate(seg, os.path.getsize(seg) - 7)
+        t = time.perf_counter()
+        cut = ShardedWal(wal_dir, 2, fsync="batch", registry=obs.Registry())
+        align_s = time.perf_counter() - t
+        try:
+            if cut.aligned_records_cut <= 0 or cut.last_seq != 2:
+                fail(f"{what}: reopening cut {cut.aligned_records_cut} "
+                     f"records and left seq {cut.last_seq}, not 2")
+            b = fleet()
+            stats = replay_into(b, cut)
+        finally:
+            cut.close()
+        if stats["replayed_records"] != 2:
+            fail(f"{what}: replayed {stats}, not the 2 complete units")
+        twin = fleet()
+        for spans in applies[:2]:
+            twin.apply(spans)
+        for i, (x, y) in enumerate(zip(twin.states, b.states)):
+            check_card_states_equal(x, y, f"{what} (shard {i})")
+        if b.write_frontier() != twin.write_frontier():
+            fail(f"{what}: the replayed frontier differs")
+        return {"capacity": cfg.capacity, "applies": len(applies),
+                "align_s": align_s,
+                "aligned_records_cut": cut.aligned_records_cut,
+                "torn_records_cut": cut.torn_records_cut,
+                "replayed_records": stats["replayed_records"]}
+    finally:
+        for f in made:
+            f.close()
+
+
+def sharded_durability_path(torch, K, dev, scale, device, smi, units):
+    """Sharded durability on the card: a 2-shard ``ShardedSpanStore`` at
+    the full configuration (2 x ~4.8 GB) journals into a ``ShardedWal``
+    at fsync ``batch`` through ``pipelined(depth=4)``: 2 of
+    ``sharded_path``'s units of 114,688 decoded spans, ``checkpoint.
+    save``, then 1 more unit with 100 known traces (the tail) and
+    ``wal_sync``. A crash (the log closed, no save) and ``recover`` of
+    the snapshot plus the log on the card must replay exactly the tail's
+    one record; the recovered fleet must equal the uncrashed one on the
+    card (every shard's leaves, integers bitwise and moments by stated
+    tolerance 2), its frontier, applied sequence, clocks and the known
+    traces' reads; K1, the claim and the write must launch once a shard
+    step, journaled and replayed (the ``sharded_durability`` entry of
+    ``launches_by_path``); one apply after the recovery journals as
+    record 4. Then ``_cut_drive`` at 2^14. The snapshot is deleted at
+    the end."""
+    from zipkin_tpu_torch import checkpoint, obs
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+    from zipkin_tpu_torch.wal import ShardedWal, recover
+
+    what = "sharded durability path"
+    cfg = full_config(dev, scale.cap_log2, scale.services)
+    known = cold_known(scale.cold_known, 74, WIN_BASE_US + 3 * WIN_STEP_US)
+    tids = [tr[0].trace_id for tr in known]
+    # Two units before the save and one after (one and one in the
+    # rehearsal, whose sharded phase makes two).
+    before = units[:-1][:2]
+    tail = units[len(before)] + [s for tr in known for s in tr]
+    after = [s for tr in cold_known(10, 76, WIN_BASE_US + 4 * WIN_STEP_US)
+             for s in tr]
+    free_card(torch, device)
+    work = tempfile.mkdtemp(prefix="zipkin-sharded-durability-")
+    wal_dir, ckpt = os.path.join(work, "wal"), os.path.join(work, "ckpt")
+    fleet = rec = wal2 = None
+    try:
+        fleet = ShardedSpanStore(2, cfg, device=device.type,
+                                 registry=obs.Registry())
+        wal = ShardedWal(wal_dir, 2, fsync="batch", registry=obs.Registry())
+        fleet.attach_wal(wal)
+        journal_s = []
+        _timed_method(fleet, "_journal_unit", journal_s)
+        K.reset_launches()
+        apply_s = []
+        with fleet.pipelined(depth=4):
+            t0 = time.perf_counter()
+            for spans in before:
+                t = time.perf_counter()
+                fleet.apply(spans)
+                apply_s.append(time.perf_counter() - t)
+            fleet.drain_pipeline()
+            sync(torch, device)
+            ingest_s = time.perf_counter() - t0
+            steps_at_save = sum(int(b["batches"])
+                                for b in fleet.shard_counters())
+            t = time.perf_counter()
+            save = checkpoint.save(fleet, ckpt)
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            fleet.apply(tail)
+            fleet.drain_pipeline()
+            sync(torch, device)
+            tail_s = time.perf_counter() - t
+        fleet.wal_sync()
+        ingest_launches = dict(K.LAUNCHES)
+        n_units = len(before) + 1
+        steps = sum(int(b["batches"]) for b in fleet.shard_counters())
+        if steps != 2 * n_units or wal.last_seq != n_units:
+            fail(f"{what}: {steps} shard steps and {wal.last_seq} epochs "
+                 f"in {n_units} journaled units")
+        if device.type == "cuda":
+            for k in ("flat_histogram", "arena_claim", "arena_write"):
+                if ingest_launches[k] != 2 * n_units:
+                    fail(f"{what}: {k} launched {ingest_launches[k]} times "
+                         f"in {n_units} journaled units of 2 shards")
+        wal.close()  # the crash: no save after the tail
+        fleet.wal = None
+        free_card(torch, device)
+        wal2 = ShardedWal(wal_dir, 2, fsync="batch", registry=obs.Registry())
+        t = time.perf_counter()
+        rec, stats = recover(ckpt, wal2, device=device.type)
+        sync(torch, device)
+        recover_s = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated()
+                if device.type == "cuda" else 0)
+        launches = dict(K.LAUNCHES)
+        replayed = {k: launches[k] - ingest_launches[k] for k in launches}
+        # The shard steps the replay ran, counted by the recovered
+        # fleet's own counter blocks past the snapshot's.
+        replayed_steps = sum(int(b["batches"])
+                             for b in rec.shard_counters()) - steps_at_save
+        if stats["replayed_records"] != 1 or stats["applied_seq"] != n_units:
+            fail(f"{what}: replayed {stats}, not the one tail record up to "
+                 f"seq {n_units}")
+        if replayed_steps != 2 * stats["replayed_records"]:
+            fail(f"{what}: {replayed_steps} shard steps replayed for "
+                 f"{stats['replayed_records']} records of 2 shards")
+        if device.type == "cuda":
+            for k in ("flat_histogram", "arena_claim", "arena_write"):
+                if replayed[k] != replayed_steps:
+                    fail(f"{what}: {k} launched {replayed[k]} times in "
+                         f"{replayed_steps} replayed shard steps")
+        for i, (a, b) in enumerate(zip(fleet.states, rec.states)):
+            check_card_states_equal(a, b, f"{what} (shard {i})")
+        clocks = [(f.inner._wp_upper, f.inner._archived_lower,
+                   f.inner._batches_since_sweep, f._step_seq,
+                   f._wal_applied, f.write_frontier())
+                  for f in (fleet, rec)]
+        if clocks[0] != clocks[1]:
+            fail(f"{what}: the recovered clocks {clocks[1]} differ from "
+                 f"the uncrashed fleet's {clocks[0]}")
+        want, got = _fleet_reads(fleet, tids), _fleet_reads(rec, tids)
+        if got != want:
+            fail(f"{what}: the recovered fleet's reads differ: " + ", ".join(
+                k for k in want if got[k] != want[k]))
+        if [len(t) for t in got["traces"]] != [len(tr) for tr in known]:
+            fail(f"{what}: the known traces did not read back whole")
+        if not any(got["by_name"].values()):
+            fail(f"{what}: the known services' queries came back empty")
+        rec.apply(after)
+        if wal2.last_seq != n_units + 1:
+            fail(f"{what}: the apply after recovery journaled as epoch "
+                 f"{wal2.last_seq}, not {n_units + 1}")
+        load = stats["load"]
+        spans_in = sum(len(u) for u in before) + len(tail)
+        result = {
+            "shards": 2, "units": n_units, "known_traces": len(known),
+            "spans_per_unit": [len(u) for u in before] + [len(tail)],
+            "journaled_apply_spans_per_s": spans_in / (ingest_s + tail_s),
+            "apply_return_s": apply_s, "ingest_s": ingest_s,
+            "tail_s": tail_s,
+            "journal_ms_per_unit": 1e3 * float(np.mean(journal_s)),
+            "save_s": save_s,
+            "save_split_s": {k: save[k] for k in (
+                "gather_s", "crc_s", "compress_s", "rename_s")},
+            "snapshot_bytes_on_disk": save["bytes_on_disk"],
+            "wal_truncated_segments": save["wal_truncated_segments"],
+            "load_s": load["total_s"],
+            "load_split_s": {k: load[k] for k in (
+                "inflate_s", "crc_s", "h2d_s")},
+            "replay_s": stats["replay_s"],
+            "replayed_records": stats["replayed_records"],
+            "replayed_spans": stats["replayed_spans"],
+            "replayed_spans_per_s": (stats["replayed_spans"]
+                                     / stats["replay_s"]),
+            "recover_s": recover_s, "recover_peak_device_bytes": peak,
+            "card": smi, "kernel_launches": launches,
+            "replayed_steps": replayed_steps,
+            "ingest_steps": steps + replayed_steps}
+        rec.close()
+        fleet.close()
+        wal2.close()
+        rec = fleet = wal2 = None
+        free_card(torch, device)
+        result["cut_drive"] = _cut_drive(torch, dev, scale, device, work)
+        log(f"sharded durability path result ({smi}): "
+            + json.dumps(result))
+        return result
+    finally:
+        for c in (rec, fleet, wal2):
+            if c is not None:
+                c.close()
+        shutil.rmtree(work, ignore_errors=True)
+        free_card(torch, device)
 
 
 def main() -> int:
@@ -6918,6 +7392,10 @@ def main() -> int:
     # The collector phase's traffic is made from here on, in worker
     # processes beside the next phases.
     traffic = EarlyTraffic(scale)
+    # The sharded daemon's empty snapshot is made on the host from here
+    # on too.
+    snapshot = Background("sharded-snapshot", empty_fleet_snapshot, dev,
+                          scale)
     cpaged = phase("cold_tier_paged", cold_tier_paged, torch, K, dev, scale,
                    device)
     phase("cold_tier_parity", cold_tier_parity, torch, dev, scale,
@@ -6932,12 +7410,15 @@ def main() -> int:
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
     phase("paged_parity", parity_phase, torch, dev, scale, args.rehearse,
           True)
-    sharded = phase("sharded_path", sharded_path, torch, K, dev, scale,
-                    device, smi)
+    sharded, units = phase("sharded_path", sharded_path, torch, K, dev,
+                           scale, device, smi)
+    sdurable = phase("sharded_durability_path", sharded_durability_path,
+                     torch, K, dev, scale, device, smi, units)
+    del units
     durable, boot = phase("durability_path", durability_path, torch, K,
                           dev, scale, device)
     daemon = phase("daemon_path", daemon_path, torch, K, scale, device,
-                   boot, daemon_traffic)
+                   boot, daemon_traffic, snapshot)
     fleet = phase("fleet_path", fleet_path, torch, K, dev, scale, device)
     repl = phase("replication_path", replication_path, torch, K, dev, scale,
                  device)
@@ -6962,7 +7443,9 @@ def main() -> int:
                "daemon": daemon["kernel_launches"],
                "replication": repl["kernel_launches"],
                "kafka": coll["kafka"]["kernel_launches"],
-               "sharded": sharded["kernel_launches"]}
+               "sharded": sharded["kernel_launches"],
+               "sharded_durability": sdurable["kernel_launches"],
+               "sharded_daemon": daemon["sharded"]["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
@@ -6978,7 +7461,9 @@ def main() -> int:
                      "daemon": daemon["ingest_steps"],
                      "replication": repl["ingest_steps"],
                      "kafka": coll["kafka"]["ingest_steps"],
-                     "sharded": sharded["ingest_steps"]}
+                     "sharded": sharded["ingest_steps"],
+                     "sharded_durability": sdurable["ingest_steps"],
+                     "sharded_daemon": daemon["sharded"]["ingest_steps"]}
     kernels = [
         {"name": "flat_histogram", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/flat_histogram.cu",

@@ -434,14 +434,25 @@ def test_port_chunked_save_slabs_big_leaves(tmp_path, monkeypatch):
 
 
 def test_sharded_and_tiered_snapshots_are_refused(tmp_path):
-    """Sharded snapshots wait for the sharding slice; a tiered snapshot
-    whose segments reference dictionary ids past the saved dictionaries
-    is inconsistent and refused."""
+    """A sharded snapshot of a paged store is refused with the
+    reference's words (the fleet has no per-shard page planner); a
+    tiered snapshot whose segments reference dictionary ids past the
+    saved dictionaries is inconsistent and refused."""
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+
     path = tmp_path / "ckpt"
-    checkpoint.save(_small_store(), str(path))
+    fleet = ShardedSpanStore(2, tdev.StoreConfig(**RING), device="cpu",
+                             registry=obs.Registry())
+    try:
+        fleet.apply([s for t in _traces("ring", 20) for s in t])
+        checkpoint.save(fleet, str(path))
+    finally:
+        fleet.close()
     meta = json.loads((path / "meta.json").read_text())
-    (path / "meta.json").write_text(json.dumps(dict(meta, shards=4)))
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    assert meta["shards"] == 2
+    meta["config"].update(layout="paged", page_rows=64)
+    (path / "meta.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="single-device only"):
         checkpoint.load(str(path), device="cpu")
     tiered, _ = _tiered_drive(CFG.capacity)
     checkpoint.save(tiered, str(path))

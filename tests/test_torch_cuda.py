@@ -1255,3 +1255,54 @@ def test_cuda_sharded_dispatcher_fuses_reads(cuda):
         assert [got[i] for i in range(8)] == serial
     finally:
         card.close()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_fleet_journals_crashes_and_recovers(cuda, tmp_path):
+    """A 2-shard fleet on the card journaled into a ShardedWal (fsync
+    batch), a checkpoint, a one-unit tail, a crash: ``recover`` on the
+    card replays exactly the tail with K1, the claim and the write once
+    a shard step, and equals the uncrashed card fleet and its CPU twin
+    fed the same spans (moments to stated tolerance 2)."""
+    from zipkin_tpu_torch import checkpoint, obs
+    from zipkin_tpu_torch.testing.crash import state_mismatches
+    from zipkin_tpu_torch.wal import ShardedWal, recover
+
+    card, cpu = _sharded_pair(cuda)
+    ckpt = str(tmp_path / "ckpt")
+    wal = ShardedWal(str(tmp_path / "wal"), 2, fsync="batch",
+                     registry=obs.Registry())
+    rec, wal2 = None, None
+    try:
+        card.attach_wal(wal)
+        applies = _window_applies(4, 200)
+        for spans in applies[:3]:
+            card.apply(spans)
+            cpu.apply(spans)
+        checkpoint.save(card, ckpt)
+        card.apply(applies[3])
+        cpu.apply(applies[3])
+        card.wal_sync()
+        wal.close()  # crash: no save after the tail
+        wal2 = ShardedWal(str(tmp_path / "wal"), 2, fsync="batch",
+                          registry=obs.Registry())
+        before = dict(K.LAUNCHES)
+        rec, stats = recover(ckpt, wal2, device=cuda)
+        torch.cuda.synchronize()
+        assert stats["replayed_records"] == 1
+        assert stats["replayed_spans"] == len(applies[3])
+        for k in ("flat_histogram", "arena_claim", "arena_write"):
+            assert K.LAUNCHES[k] - before[k] == 2, k
+        assert rec.write_frontier() == card.write_frontier()
+        assert rec._wal_applied == card._wal_applied == 4
+        for a, b in zip(card.states, rec.states):
+            assert not state_mismatches(a, b, moments_tolerance=True)
+        for a, b in zip(cpu.states, rec.states):
+            assert not state_mismatches(a, b, moments_tolerance=True)
+        tids = sorted({s.trace_id for s in applies[3]})[:40]
+        assert rec.get_spans_by_trace_ids(tids) == \
+            cpu.get_spans_by_trace_ids(tids)
+    finally:
+        for c in (rec, card, cpu, wal2):
+            if c is not None:
+                c.close()

@@ -51,7 +51,8 @@ def test_package_imports_without_jax():
             "zipkin_tpu_torch.aggregate.windows, zipkin_tpu_torch.obs, "
             "zipkin_tpu_torch.checkpoint, zipkin_tpu_torch.wal, "
             "zipkin_tpu_torch.wal.log, zipkin_tpu_torch.wal.record, "
-            "zipkin_tpu_torch.wal.recovery, zipkin_tpu_torch.testing.crash, "
+            "zipkin_tpu_torch.wal.recovery, zipkin_tpu_torch.wal.sharded, "
+            "zipkin_tpu_torch.testing.crash, "
             "zipkin_tpu_torch.store.memory, zipkin_tpu_torch.store.archive, "
             "zipkin_tpu_torch.store.archive.sketches, "
             "zipkin_tpu_torch.store.archive.segment, "
@@ -148,6 +149,26 @@ def test_fleet_imports_without_jax():
             "assert EvictionSealer.at_capacity and "
             "IngestPipeline.progress_age_s; "
             "assert fleet.fsync_parked_probe and fleet.sealer_backlog_probe")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_sharded_durability_imports_without_jax():
+    """The sharded log, its replay and the fleet's journal and pipeline
+    import with JAX and the JAX package blocked."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['zipkin_tpu'] = None; "
+            "from zipkin_tpu_torch.wal import ShardedWal, "
+            "replay_sharded_into; "
+            "from zipkin_tpu_torch.parallel import ShardedSpanStore; "
+            "from zipkin_tpu_torch import checkpoint; "
+            "assert ShardedWal.append_unit and ShardedWal.replay_units; "
+            "assert ShardedSpanStore.attach_wal and "
+            "ShardedSpanStore.pipelined; "
+            "assert checkpoint._sharded_clocks and replay_sharded_into")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 

@@ -7,7 +7,7 @@ capture 30, commit 40, the sealed-frontier leaf 45, the WAL 60, the
 pipeline stage 65, the fleet tracker 82; replication's as the reference
 ranks them: the replica's apply lock 12 and its readers/writer lock 40,
 the lock's own condition 42, the shipper's followers 79, the follower's
-stats 80), every ``# guarded-by:`` field
+stats 80; the sharded log's group lock 58), every ``# guarded-by:`` field
 is read under its lock or suppressed with a reason, and the acquisition
 graph has no cycle and no inverted edge. Any finding fails; there is no
 baseline to hide one in.
@@ -66,6 +66,8 @@ def test_every_port_lock_is_ranked(project):
     assert ranks["RWLock._cond"] == 42
     assert ranks["WalShipper._lock"] == 79
     assert ranks["Follower._lock"] == 80
+    # The sharded group-commit log, above its member logs' conditions.
+    assert ranks["ShardedWal._lock"] == 58
 
 
 def test_port_lock_graph_sees_the_write_path(project):
@@ -81,6 +83,8 @@ def test_port_lock_graph_sees_the_write_path(project):
         ("TorchSpanStore._lock", "LineageTracker._lock"),
         ("TorchSpanStore._cap_lock", "_StageBase._cond"),
         ("TorchSpanStore._state_lock", "TorchSpanStore._seal_lock"),
+        # The sharded log's group lock orders its member logs' appends.
+        ("ShardedWal._lock", "WriteAheadLog._cond"),
     }
     missing = expected - edges
     assert not missing, f"lock graph lost edges: {sorted(missing)}"

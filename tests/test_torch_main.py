@@ -11,8 +11,13 @@ against the JAX package's, on the CPU.
   reference ``build_app``'s at the same flags, the ordered shutdown and a
   boot that replays nothing, then a crash (no checkpoint) and a boot that
   replays the log's tail, both reading back what the reference reads;
-- the refused flags (``--shards``; ``--ship-port`` without a log and a
-  malformed ``--follow``, as the reference refuses them);
+- ``--shards 2`` with a WAL and a checkpoint, built in-process: the
+  fleet, its ``ShardedWal`` and the dispatcher's wiring, reads equal to
+  the reference daemon's, shutdown then a boot and a crash then a boot,
+  each boot's ``wal: replayed`` line the reference's;
+- the refused flags, each with the reference's message (``--ship-port``
+  without a log, a malformed ``--follow``, and what the reference
+  refuses on a sharded store);
 - tracegen's ``run`` on the device store and the memory store, its
   output line for line the reference's.
 
@@ -148,24 +153,18 @@ def test_port_memory_store_build_app_and_seed(daemons):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--shards", "2"], "item 6b"),
+    (["--shards", "2", "--ship-port", "1"], "requires --wal-dir"),
     (["--ship-port", "1"], "requires --wal-dir"),
     (["--follow", "h1"], "wants HOST:PORT"),
 ])
 def test_port_refuses_unported_flags(argv, item):
-    """``--shards`` still waits for ROADMAP item 6b. The replication flags
-    are ported and refuse only what the reference refuses (its messages),
+    """Every flag is ported (``--shards`` since ROADMAP item 6b): the
+    daemon refuses only what the reference refuses, with its messages,
     before anything is built or connected."""
+    assert not hasattr(example, "refuse_unported")
     args = example.build_parser().parse_args(["--platform", "cpu"] + argv)
     build = (example.build_follower_app if argv[0] == "--follow"
              else example.build_app)
-    if argv[0] == "--shards":
-        with pytest.raises(SystemExit, match=item):
-            example.refuse_unported(args)
-        with pytest.raises(SystemExit, match=item):
-            example.build_follower_app(args)
-    else:
-        example.refuse_unported(args)
     if argv[0] == "--follow":
         ref_args = ref_example.build_parser().parse_args(argv)
         with pytest.raises(SystemExit, match=item):
@@ -253,6 +252,13 @@ def _same_reads(got, want):
     assert any(got[k][1]["traceIds"] for k in got if k.startswith("query"))
 
 
+def _sharded_flags(tmp):
+    return ["--platform", "cpu", "--shards", "2", "--capacity", "1024",
+            "--wal-dir", str(tmp / "wal"), "--checkpoint",
+            str(tmp / "ckpt"), "--host", "127.0.0.1", "--port", "0",
+            "--scribe-port", "0"]
+
+
 def _ref_boot(args):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -308,8 +314,8 @@ def reference_run(tmp_path_factory):
     return out
 
 
-def _boot(daemons, tmp, capsys):
-    args = example.build_parser().parse_args(_flags(tmp))
+def _boot(daemons, tmp, capsys, flags=_flags):
+    args = example.build_parser().parse_args(flags(tmp))
     store, collector, api, _ = example.build_app(args)
     api.tracer.sample_rate = 0.0
     servers = example.start_servers(args, store, collector, api)
@@ -378,6 +384,141 @@ def test_port_daemon_boot_shutdown_crash_match_reference(
     assert _replayed(lines) == want["boot3"]
     assert want["boot3"][0] >= 1
     _same_reads(_reads(d["api"], KNOWN_A + KNOWN_B), want["b"])
+
+
+# ---------------------------------------------------------------------------
+# --shards: the sharded store with its group-commit log and snapshot
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def reference_sharded_run(tmp_path_factory):
+    """The reference daemon's lifecycle at ``--shards 2`` (a 2-device
+    CPU mesh) and the same flags: boot and its probes, set A acked and
+    its reads, the ordered shutdown, a boot (its replay line and reads),
+    set B acked and a crash, a boot (its replay line) and the reads of
+    both sets."""
+    tmp = tmp_path_factory.mktemp("ref-sharded-daemon")
+    args = ref_example.build_parser().parse_args(_sharded_flags(tmp))
+    out = {}
+    store, collector, api, _ = _ref_boot(args)
+    try:
+        out["probes"] = [n for n, _ in api.fleet.watchdog._probes]
+        collector.ingest_durable([s for t in KNOWN_A for s in t])
+        collector.flush()
+        out["a"] = _reads(api, KNOWN_A)
+    finally:
+        _ref_close(store, collector, api, args)
+    store, collector, api, lines = _ref_boot(args)
+    try:
+        out["boot2"] = _replayed(lines)
+        out["a2"] = _reads(api, KNOWN_A)
+        collector.ingest_durable([s for t in KNOWN_B for s in t])
+    finally:
+        _ref_close(store, collector, api)
+    store, collector, api, lines = _ref_boot(args)
+    try:
+        out["boot3"] = _replayed(lines)
+        out["b"] = _reads(api, KNOWN_A + KNOWN_B)
+    finally:
+        _ref_close(store, collector, api)
+    return out
+
+
+def test_port_sharded_daemon_boot_shutdown_crash_match_reference(
+        daemons, tmp_path, capsys, reference_sharded_run):
+    """``--shards 2 --wal-dir --checkpoint`` through ``build_app``: two
+    shards on the one device (the CPU here), a ShardedWal replayed at
+    boot, the dispatcher wired to the lineage tracker and the watchdog;
+    every boot's replay line and reads equal the reference daemon's."""
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+    from zipkin_tpu_torch.wal import ShardedWal
+
+    want = reference_sharded_run
+    args, d, lines = _boot(daemons, tmp_path, capsys, _sharded_flags)
+    store, collector, api = d["store"], d["collector"], d["api"]
+    assert isinstance(store, ShardedSpanStore) and store.n == 2
+    assert store.device.type == "cpu"
+    assert isinstance(store.wal, ShardedWal) and store.wal.n_shards == 2
+    assert store.wal.epoch.fsync == "interval"
+    assert store.dispatcher.span_sink is api.fleet.tracker
+    assert [n for n, _ in api.fleet.watchdog._probes] == want["probes"]
+    assert "dispatcher" in want["probes"]
+    assert _replayed(lines) == (0, 0)
+    collector.ingest_durable([s for t in KNOWN_A for s in t])
+    collector.flush()
+    assert store._wal_applied == store.wal.last_seq >= 1
+    _same_reads(_reads(api, KNOWN_A), want["a"])
+
+    example.shutdown(args, store, collector, api, d["servers"])
+    daemons.live.remove(d)
+    args, d, lines = _boot(daemons, tmp_path, capsys, _sharded_flags)
+    assert any(ln.startswith("checkpoint: restored ") for ln in lines)
+    assert _replayed(lines) == want["boot2"]
+    store, collector, api = d["store"], d["collector"], d["api"]
+    assert isinstance(store, ShardedSpanStore) and store.n == 2
+    _same_reads(_reads(api, KNOWN_A), want["a"])
+    _same_reads(want["a2"], want["a"])
+
+    collector.ingest_durable([s for t in KNOWN_B for s in t])
+    daemons.stop_servers(d)
+    collector.close()
+    api.query.close()
+    api.fleet.tracker.flush()
+    store.wal.close()
+    daemons.live.remove(d)
+    args, d, lines = _boot(daemons, tmp_path, capsys, _sharded_flags)
+    assert _replayed(lines) == want["boot3"]
+    assert want["boot3"][0] >= 1
+    _same_reads(_reads(d["api"], KNOWN_A + KNOWN_B), want["b"])
+
+
+def _fleet_snapshot(tmp):
+    """A 2-shard snapshot saved by the port's daemon wiring."""
+    from zipkin_tpu_torch import checkpoint
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+    from zipkin_tpu_torch.store.device import StoreConfig
+
+    path = str(tmp / "fleet-ckpt")
+    fleet = ShardedSpanStore(2, StoreConfig(capacity=1024), device="cpu")
+    try:
+        checkpoint.save(fleet, path)
+    finally:
+        fleet.close()
+    return path
+
+
+@pytest.mark.parametrize("extra, message", [
+    (["--layout", "paged"], "--layout paged requires the single-device "
+     "store (the sharded store's per-shard page planner is not wired "
+     "yet)"),
+    (["--cold-tier"], "--cold-tier requires the single-device store (the "
+     "sharded store's per-shard capture is not wired yet)"),
+    (["--wal-dir", "{tmp}/wal", "--ship-port", "1"],
+     "--ship-port/--wal-retain-bytes are single-log features; the "
+     "sharded group-commit log does not ship to followers yet"),
+    (["--wal-dir", "{tmp}/wal", "--wal-retain-bytes", "4096"],
+     "--ship-port/--wal-retain-bytes are single-log features; the "
+     "sharded group-commit log does not ship to followers yet"),
+    (["--checkpoint", "{ckpt}", "--shards", "3"],
+     "checkpoint has 2 shard(s); --shards 3 does not match"),
+], ids=["paged", "cold-tier", "ship-port", "wal-retain-bytes",
+        "shard-count"])
+def test_port_sharded_refusals_match_reference(tmp_path, extra, message):
+    """What a sharded daemon refuses, word for word the reference's
+    refusal at the same flags (the shard-count case restores a port
+    snapshot in both packages)."""
+    ckpt = _fleet_snapshot(tmp_path) if "{ckpt}" in extra else ""
+    argv = ["--shards", "2", "--capacity", "1024", "--no-fleet-obs"] + [
+        a.format(tmp=tmp_path, ckpt=ckpt) for a in extra]
+    args = example.build_parser().parse_args(["--platform", "cpu"] + argv)
+    with pytest.raises(SystemExit) as got:
+        example.build_app(args)
+    ref_args = ref_example.build_parser().parse_args(
+        ["--platform", "cpu"] + argv)
+    with pytest.raises(SystemExit) as want:
+        ref_example.build_app(ref_args)
+    assert str(got.value) == str(want.value) == message
 
 
 # ---------------------------------------------------------------------------

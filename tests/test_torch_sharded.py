@@ -671,22 +671,31 @@ def test_fleet_rejects_paged_layout():
         ShardedSpanStore(2, paged, device="cpu", registry=obs.Registry())
 
 
-def test_fleet_durability_waits_for_item_6b(new_store, tmp_path):
-    """The sharded log, pipeline and checkpoint are the next slice's:
-    each entry point raises naming it, none falls back to a
-    single-store path; ingest without incoming= is the reference's
-    TypeError."""
+def test_fleet_durability_is_ported(new_store, tmp_path):
+    """Item 6b is ported: the sharded log, the pipeline and the
+    checkpoint run on the fleet, and no entry point raises naming it or
+    falls back to a single-store path; ingest without incoming= is the
+    reference's TypeError. tests/test_torch_sharded_durability.py holds
+    what they produce against the reference."""
+    from zipkin_tpu_torch.wal import ShardedWal
+
     store = new_store(2, SMALL)
-    store.apply(_port_spans(4, 3, seed=8))
-    for call in (lambda: store.attach_wal(object()), store.wal_sync,
-                 lambda: store.start_pipeline(2), store.drain_pipeline,
-                 store.stop_pipeline, lambda: store.pipelined(2),
-                 lambda: store._journal_unit([])):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    wal = ShardedWal(str(tmp_path / "wal"), 2, fsync="off")
+    try:
+        store.attach_wal(wal)
+        store.apply(_port_spans(4, 3, seed=8))
+        with store.pipelined(2) as pipe:
+            store.apply(_port_spans(4, 3, seed=9))
+            assert pipe is store._pipeline
+        store.drain_pipeline()
+        store.stop_pipeline()
+        store.wal_sync()
+        assert wal.last_seq == wal.durable_seq == 2 == store._wal_applied
         port_checkpoint.save(store, str(tmp_path / "ckpt"))
-    assert not (tmp_path / "ckpt").exists()
+        assert (tmp_path / "ckpt" / "meta.json").exists()
+        store.close()
+    finally:
+        wal.close()
     with pytest.raises(TypeError, match="incoming"):
         store.inner.ingest(())
 

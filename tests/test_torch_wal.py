@@ -312,13 +312,37 @@ def test_foreign_log_lineage_fails_fast(tmp_path):
     wal2.close()
 
 
-def test_sharded_log_is_refused():
-    class Sharded:
-        def replay_units(self, from_seq):
-            return iter(())
+def test_sharded_log_is_refused(tmp_path):
+    """A log with ``replay_units`` (a ShardedWal) is no longer refused:
+    ``replay_into`` hands it to the sharded replay, which replays its
+    epochs into a fleet (tests/test_torch_sharded_durability.py holds
+    the replayed states)."""
+    from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+    from zipkin_tpu_torch.tracegen import generate_traces
+    from zipkin_tpu_torch.wal import ShardedWal
 
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        replay_into(build_crash_store(device="cpu"), Sharded())
+    cfg = tdev.StoreConfig(
+        capacity=512, ann_capacity=2048, bann_capacity=1024,
+        max_services=16, max_span_names=32, max_annotation_values=64,
+        max_binary_keys=16, cms_width=256, hll_p=8, quantile_buckets=128)
+    spans = [s for t in generate_traces(
+        n_traces=8, max_depth=3, n_services=4,
+        rng=np.random.default_rng(3)) for s in t]
+    wal = ShardedWal(str(tmp_path / "wal"), 2, fsync="off")
+    fleet = ShardedSpanStore(2, cfg, device="cpu", registry=obs.Registry())
+    other = ShardedSpanStore(2, cfg, device="cpu", registry=obs.Registry())
+    try:
+        fleet.attach_wal(wal)
+        fleet.apply(spans[:20])
+        fleet.apply(spans[20:])
+        stats = replay_into(other, wal)
+        assert stats["replayed_records"] == 2
+        assert stats["replayed_spans"] == len(spans)
+        assert stats["applied_seq"] == 2 == other._wal_applied
+    finally:
+        fleet.close()
+        other.close()
+        wal.close()
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Checkpoint/restore for the torch device store (durability).
+"""Checkpoint/restore for the torch device stores (durability).
 
-The port's copy of ``zipkin_tpu/checkpoint.py`` for single-device
-stores. A snapshot is a directory: ``state.npz`` (every state leaf,
+The port's copy of ``zipkin_tpu/checkpoint.py``. A snapshot is a
+directory: ``state.npz`` (every state leaf,
 counters as ``counters.<name>``, deflate level 1), ``meta.json``
 (revision, config, per-leaf CRC32s, TTLs, dictionaries, the host
 clocks, the paged planner) and ``pins.pkl`` (pinned traces' banks).
@@ -29,14 +29,19 @@ segment manifest) and one immutable blob per segment under
 not written again. ``load`` then returns a ``TieredSpanStore`` whose
 cold tier continues contiguously from the snapshot's frontier.
 
-Not here yet: sharded snapshots (``meta["shards"]``; ROADMAP Queue 1,
-item 6b). ``load`` refuses them by name, and ``save`` of a
-``parallel.ShardedSpanStore`` raises at its pipeline drain, which names
-the same item.
+A ``parallel.ShardedSpanStore`` snapshots in the reference's sharded
+layout: ``meta["shards"] = n``, every leaf stacked ``[n, ...]`` on the
+host (one shard at a time into the host buffer, never stacked on the
+card), and the fleet's pacing clocks (``_sharded_clocks``). Its save
+holds the fleet's ``_lock`` and the read half of its ``_rw`` (no
+stage-1 writer, no commit) across the gather. ``load`` of such a
+snapshot returns a ``ShardedSpanStore`` with the snapshot's shard
+count, every shard's leaves on ``device``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -117,6 +122,44 @@ def _host_clocks(store) -> dict:
         "sealed_upto": int(store.sealed_frontier()),
         "wal_applied": int(store._wal_applied),
     }
+
+
+def _seal_barrier(store) -> None:
+    """Wait for the store's async capture sealer (if any) to finish
+    every pulled window; see save() for why it runs under the locks."""
+    barrier = getattr(store, "seal_barrier", None)
+    if barrier is not None:
+        barrier()
+
+
+def _sharded_clocks(store) -> dict:
+    """The sharded store's host pacing clocks, read under the same
+    holds as the per-shard gather. The top-level ``wal_applied`` key
+    keeps save()'s WAL-truncation coordination identical across store
+    kinds (a ShardedWal truncates by epoch sequence exactly as a
+    WriteAheadLog does by record sequence)."""
+    inner = store.inner
+    return {
+        "sharded": 1,
+        "wp_upper": int(inner._wp_upper),
+        "archived_lower": int(inner._archived_lower),
+        "batches_since_sweep": int(inner._batches_since_sweep),
+        # Read under the gather's hold of _rw (save's _cut), which the
+        # checker cannot see through the call.
+        "step_seq": int(store._step_seq),  # graftlint: disable=guarded-by
+        "wal_applied": int(store._wal_applied),
+    }
+
+
+@contextlib.contextmanager
+def _cut(store, sharded: bool):
+    """The gather's hold: the encode lock (no stage-1 writer) and, for
+    a single store, its state lock (no commit, no reader); for a fleet,
+    the read half of its commit lock (no commit; readers do not write
+    the shards)."""
+    with store._lock:
+        with (store._rw.read() if sharded else store._state_lock):
+            yield
 
 
 def _dict_dump(d) -> list:
@@ -265,21 +308,27 @@ def _fetch_leaf(arr, deadline_s, stats: Optional[dict]):
     return out[0] if len(out) == 1 else np.concatenate(out, axis=0)
 
 
-def _state_generation(store, deadline_s) -> list:
+def _state_generation(store, sharded, deadline_s) -> list:
     """A cheap scalar fingerprint of the device state's write history:
     equal generations mean no ingest/sweep/close touched the state
     between two save attempts, so staged leaves from the earlier
     attempt are still a consistent cut and may be reused."""
-    st = store.state
-    gen = {
-        "write_pos": st.write_pos,
-        "ann_write_pos": st.ann_write_pos,
-        "bann_write_pos": st.bann_write_pos,
-        "pend_pos": st.pend_pos,
-        "dep_bank_seq": st.dep_bank_seq,
-        "ts_max": st.ts_max,
-        **{f"counters.{k}": v for k, v in st.counters.items()},
-    }
+    def of(st):
+        return {
+            "write_pos": st.write_pos,
+            "ann_write_pos": st.ann_write_pos,
+            "bann_write_pos": st.bann_write_pos,
+            "pend_pos": st.pend_pos,
+            "dep_bank_seq": st.dep_bank_seq,
+            "ts_max": st.ts_max,
+            **{f"counters.{k}": v for k, v in st.counters.items()},
+        }
+
+    if sharded:
+        per = [of(st) for st in store.states]
+        gen = {k: torch.stack([g[k] for g in per]) for k in per[0]}
+    else:
+        gen = of(store.state)
     host = _bounded_get(gen, deadline_s)
     # Lists, not tuples: the fingerprint round-trips through JSON and
     # must compare equal to its own deserialization.
@@ -298,9 +347,41 @@ def _state_items(state):
             yield name, value
 
 
+def _store_items(store, sharded: bool):
+    """(npz key, tensor) for every leaf of a single store, or (npz key,
+    [one tensor a shard]) for a fleet."""
+    if not sharded:
+        yield from _state_items(store.state)
+        return
+    per = [dict(_state_items(st)) for st in store.states]
+    for key in per[0]:
+        yield key, [p[key] for p in per]
+
+
+def _host_leaf(leaf, fetch=None) -> np.ndarray:
+    """A host copy of one leaf. A fleet's per-shard tensors stack
+    ``[n, ...]`` into one host buffer, one shard at a time: straight
+    into its slot (``fetch`` None), or through ``fetch`` (the chunked
+    path's bounded slabs)."""
+    if not isinstance(leaf, list):
+        return np.asarray(_to_host(leaf) if fetch is None else fetch(leaf))
+    t0 = leaf[0]
+    out = np.empty((len(leaf),) + tuple(t0.shape),
+                   torch.empty(0, dtype=t0.dtype).numpy().dtype)
+    for i, t in enumerate(leaf):
+        if fetch is None:
+            torch.from_numpy(out[i:i + 1].reshape(tuple(t.shape))).copy_(
+                t.detach())
+        else:
+            out[i] = fetch(t)
+    return out
+
+
 def save(store, path: str, chunk_deadline_s: Optional[float] = None
          ) -> dict:
-    """Snapshot a TorchSpanStore to ``path`` (a directory), atomically.
+    """Snapshot a TorchSpanStore OR a ShardedSpanStore to ``path`` (a
+    directory), atomically. A fleet saves every leaf stacked
+    ``[n_shards, ...]`` on the host; load() restores it as a fleet.
 
     With ``chunk_deadline_s`` set, the device-to-host gather is CHUNKED
     and RESUMABLE: each leaf transfers in <= 64 MB slabs, each under
@@ -322,10 +403,16 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
     # drain-pipeline → seal → gather).
     for eng in getattr(store, "query_engines", lambda: ())():
         eng.drain()
+    # The same quiesce for a fleet's cross-shard dispatcher: a fused
+    # read mid-dispatch finishes before the gather's cut.
+    dispatcher = getattr(store, "dispatcher", None)
+    if dispatcher is not None:
+        dispatcher.drain()
     tiered = (store if getattr(store, "archive", None) is not None
               and hasattr(store, "hot") else None)
     if tiered is not None:
         store = tiered.hot
+    sharded = hasattr(store, "states")
     # A prior save's timeout may have left an orphaned transfer thread
     # still reading the state; a fresh cut must not race it.
     if store.suspect:
@@ -338,25 +425,26 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
     staging = os.path.abspath(path) + ".staging"
     leaves = {}
     t0 = time.perf_counter()
+    clocks_of = _sharded_clocks if sharded else _host_clocks
     if chunk_deadline_s is None:
-        # One pass over the leaves under both locks: no stage-1 writer,
-        # no commit and no reader moves the state or the clocks while
-        # they are copied out.
-        with store._lock, store._state_lock:
+        # One pass over the leaves under the locks: no stage-1 writer,
+        # no commit (and, on a single store, no reader) moves the state
+        # or the clocks while they are copied out.
+        with _cut(store, sharded):
             # Capture-backlog quiesce under the locks: a window pulled
             # before this point seals now; one pulled after cannot lose
             # rows from this cut (its overwriting step waits for the
             # state lock until the gather is done).
-            store.seal_barrier()
-            clocks = _host_clocks(store)
-            for key, leaf in _state_items(store.state):
-                leaves[key] = np.asarray(_to_host(leaf))
+            _seal_barrier(store)
+            clocks = clocks_of(store)
+            for key, leaf in _store_items(store, sharded):
+                leaves[key] = _host_leaf(leaf)
     else:
         try:
-            with store._lock, store._state_lock:
-                store.seal_barrier()  # as in the one-pass gather
-                clocks = _host_clocks(store)
-                gen = _state_generation(store, chunk_deadline_s)
+            with _cut(store, sharded):
+                _seal_barrier(store)  # as in the one-pass gather
+                clocks = clocks_of(store)
+                gen = _state_generation(store, sharded, chunk_deadline_s)
                 if os.path.isdir(staging):
                     try:
                         with open(os.path.join(staging, _GEN_FILE)) as f:
@@ -368,12 +456,13 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
                 os.makedirs(staging, exist_ok=True)
                 with open(os.path.join(staging, _GEN_FILE), "w") as f:
                     json.dump(gen, f)
-                for key, leaf in _state_items(store.state):
+                for key, leaf in _store_items(store, sharded):
                     dest = os.path.join(staging, key + ".npy")
                     if os.path.exists(dest):
                         stats["resumed_leaves"] += 1
                         continue
-                    host = _fetch_leaf(leaf, chunk_deadline_s, stats)
+                    host = _host_leaf(leaf, lambda t: _fetch_leaf(
+                        t, chunk_deadline_s, stats))
                     tmp_leaf = dest + ".tmp"
                     with open(tmp_leaf, "wb") as f:
                         np.save(f, host, allow_pickle=False)
@@ -395,7 +484,7 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
     # WAL seq under the planner lock, so this cut is self-consistent at
     # any boundary: plans at seq <= the snapshot's last_seq replay from
     # the recorded memo; later ones re-derive deterministically.
-    planner = store._planner
+    planner = getattr(store, "_planner", None)
     paged_meta = planner.snapshot() if planner is not None else None
     with store._lock:
         # Pinned traces' banks must survive restarts, pickled (not
@@ -411,7 +500,7 @@ def save(store, path: str, chunk_deadline_s: Optional[float] = None
     meta = {
         "revision": _REVISION,
         "config": store.config._asdict(),
-        "shards": None,
+        "shards": store.n if sharded else None,
         "slab_crc32": crcs,
         "ttls": ttls_snapshot,
         "name_lc": {str(k): v for k, v in store._name_lc.items()},
@@ -573,12 +662,122 @@ def _load_dicts(d: dict) -> DictionarySet:
     return dicts
 
 
+class _Members:
+    """A snapshot's inflated npz members as the revision migrations read
+    them (``files`` and ``[name]``, like the npz file): for a fleet,
+    every stacked leaf sliced to one shard."""
+
+    def __init__(self, raw: dict, shard: Optional[int] = None):
+        self._raw = raw
+        self._shard = shard
+        self.files = list(raw)
+
+    def __getitem__(self, name):
+        v = self._raw[name]
+        if self._shard is None or np.ndim(v) == 0:
+            return v
+        return v[self._shard]
+
+
+def _adapt(cols: _Members, revision: int, config, drops_init: int):
+    """One state's leaves and counters from a snapshot's members,
+    migrated from ``revision`` to the current schema (the reference's
+    rules). Returns (leaves, counters) as host arrays."""
+    upd = {}
+    counters = {}
+    for key in cols.files:
+        if key.startswith("counters."):
+            counters[key.split(".", 1)[1]] = cols[key]
+        else:
+            upd[key] = cols[key]
+    # Counters the snapshot predates keep their init defaults; counters
+    # the schema no longer carries are dropped.
+    counters = {k: v for k, v in counters.items() if k in dev.COUNTER_NAMES}
+    if revision < 9:
+        # Pre-rev-8 stores never counted key-claim drops, and rev-8
+        # tables are tombstoned below: either way absence proves
+        # nothing, so the negative-lookup gate stays off for good.
+        drops = int(np.asarray(counters.get("key_claim_drops", drops_init)))
+        counters["key_claim_drops"] = np.int64(max(drops, 1))
+    if revision < 11:
+        # Revision 11 merged every index family into ONE arena: drop the
+        # stale per-family arrays and poison trust per segment — the
+        # candidate prefix for good (scans serve), the trace suffix
+        # seeded at the restore-time write_pos (self-heals after one
+        # ring lap).
+        for k in ("tr_idx", "tr_pos", "tr_wm",
+                  "cand_idx", "cand_pos", "cand_wm"):
+            upd.pop(k, None)
+        n_total = config.idx_layout[1]
+        n_cand = config.cand_layout[1]
+        upd["cand_pos"] = np.full(n_total, 1 << 60, np.int64)
+        wp = upd.get("write_pos")
+        tr_seed = dev.I64_MAX if wp is None else int(np.asarray(wp))
+        upd["cand_wm"] = np.where(np.arange(n_total) < n_cand,
+                                  np.int64(dev.I64_MAX),
+                                  np.int64(tr_seed)).astype(np.int64)
+    if revision < 9 and "key_tab" in upd:
+        # Pre-9 tables stored exact 64-bit key words; the claim-is-first-
+        # record invariant can't be re-certified, so tombstone the table.
+        upd["key_tab"] = np.full(np.asarray(upd["key_tab"]).shape,
+                                 dev._FP_TOMB, np.int32)
+        if "key_wm" in upd:
+            upd["key_wm"] = np.full(np.asarray(upd["key_wm"]).shape,
+                                    dev.I64_MAX, np.int64)
+    upd = {k: v for k, v in upd.items() if k in dev.FIELDS}
+    if "span_tab" in upd and np.asarray(upd["span_tab"]).dtype == np.int64:
+        # Pre-11 packed i64 words -> [H, 2] i32 planes: a lossless
+        # little-endian bitcast, gated on the stored dtype.
+        tab = np.asarray(upd["span_tab"])
+        if revision < 7:
+            tab = np.where(tab == 0, dev._TAB_EMPTY, tab)
+        tab = np.ascontiguousarray(tab)
+        upd["span_tab"] = tab.view(np.int32).reshape(tab.shape + (2,))
+    if revision < 4:
+        _migrate_legacy_live_links(cols, upd, config)
+    if "dep_banks" not in upd:
+        # Pre-revision-3 snapshot: the saved dep_moments becomes the
+        # all-time tail, marked as covering every window.
+        if float(np.asarray(cols["dep_moments"])[:, 0].sum()) > 0:
+            upd["dep_overflow_ts"] = np.array([dev.I64_MIN, dev.I64_MAX],
+                                              np.int64)
+    # Host tensors now, so the placement under the store's locks only
+    # copies.
+    return ({k: torch.from_numpy(np.asarray(v, order="C"))
+             for k, v in upd.items()},
+            {k: int(np.asarray(v)) for k, v in counters.items()})
+
+
+def _place(state, leaves: dict, counters: dict, revision: int,
+           device) -> None:
+    """Copy one state's restored leaves onto ``device`` (in place where
+    the shape and dtype match) and run the trust migrations of
+    snapshots that predate the index families (pre-6) or ann_poison
+    (pre-7)."""
+    cur = state.leaves
+    for k, src in leaves.items():
+        t = cur[k]
+        if tuple(t.shape) == tuple(src.shape) and t.dtype == src.dtype:
+            t.copy_(src)
+        else:
+            cur[k] = src.to(device)
+    for k, v in counters.items():
+        cur["counters"][k].fill_(v)
+    if revision < 6:
+        # Empty buckets whose zero cursors claim completeness: poison.
+        dev.poison_index_trust(state)
+    if revision < 7:
+        dev.poison_ann_trust(state)
+
+
 def load(path: str, device="cuda", config_defaults=None,
          stats: Optional[dict] = None):
-    """Restore a TorchSpanStore on ``device`` from a snapshot directory
-    written by either package (falling back to ``.old`` if a save
-    crashed mid-swap); a tiered snapshot (``meta["archive"]``) restores
-    as a ``TieredSpanStore`` around it.
+    """Restore a store on ``device`` from a snapshot directory written
+    by either package (falling back to ``.old`` if a save crashed
+    mid-swap): a TorchSpanStore, a ``TieredSpanStore`` around one for a
+    tiered snapshot (``meta["archive"]``), or a ``ShardedSpanStore``
+    with the snapshot's shard count for a sharded one
+    (``meta["shards"]``; every shard on ``device``).
 
     ``config_defaults`` fills config keys the snapshot's meta does NOT
     carry (a knob newer than the snapshot) — keys in the meta always
@@ -590,17 +789,21 @@ def load(path: str, device="cuda", config_defaults=None,
         path = path + ".old"
     with open(os.path.join(path, _META_FILE)) as f:
         meta = json.load(f)
-    if meta.get("shards"):
-        raise NotImplementedError(
-            "sharded snapshots restore through the sharded checkpoint, "
-            "which the port does not have yet (ROADMAP Queue 1, item "
-            "6b: sharded durability)")
     cfg_map = dict(meta["config"])
     for k, v in (config_defaults or {}).items():
         cfg_map.setdefault(k, v)
     config = dev.StoreConfig(**cfg_map)
-    store = TorchSpanStore(config, codec=SpanCodec(_load_dicts(meta["dicts"])),
-                           device=device)
+    codec = SpanCodec(_load_dicts(meta["dicts"]))
+    n_shards = meta.get("shards")
+    if n_shards:
+        from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+
+        store = ShardedSpanStore(n_shards, config, device=device,
+                                 codec=codec)
+        states = store.states
+    else:
+        store = TorchSpanStore(config, codec=codec, device=device)
+        states = [store.state]
     store.ttls = {int(k): v for k, v in meta["ttls"].items()}
     store._name_lc = {int(k): v for k, v in meta["name_lc"].items()}
     pins_path = os.path.join(path, _PINS_FILE)
@@ -631,139 +834,102 @@ def load(path: str, device="cuda", config_defaults=None,
                 f"snapshot or an earlier checkpoint + WAL replay")
         return arr
 
-    upd = {}
-    counters = {}
-    for key in data.files:
-        if key.startswith("counters."):
-            counters[key.split(".", 1)[1]] = _leaf(key)
-        else:
-            upd[key] = _leaf(key)
-    # Counters the snapshot predates keep their init defaults; counters
-    # the schema no longer carries are dropped.
-    counters = {k: v for k, v in counters.items() if k in dev.COUNTER_NAMES}
+    raw = {key: _leaf(key) for key in data.files}
     revision = meta.get("revision", 1)
-    if revision < 9:
-        # Pre-rev-8 stores never counted key-claim drops, and rev-8
-        # tables are tombstoned below: either way absence proves
-        # nothing, so the negative-lookup gate stays off for good.
-        drops = int(np.asarray(counters.get(
-            "key_claim_drops", store.state.counters["key_claim_drops"]
-            .item())))
-        counters["key_claim_drops"] = np.int64(max(drops, 1))
-    legacy = revision < 4
-    if revision < 11:
-        # Revision 11 merged every index family into ONE arena: drop the
-        # stale per-family arrays and poison trust per segment — the
-        # candidate prefix for good (scans serve), the trace suffix
-        # seeded at the restore-time write_pos (self-heals after one
-        # ring lap).
-        for k in ("tr_idx", "tr_pos", "tr_wm",
-                  "cand_idx", "cand_pos", "cand_wm"):
-            upd.pop(k, None)
-        n_total = config.idx_layout[1]
-        n_cand = config.cand_layout[1]
-        upd["cand_pos"] = np.full(n_total, 1 << 60, np.int64)
-        wp = upd.get("write_pos")
-        tr_seed = dev.I64_MAX if wp is None else int(np.asarray(wp))
-        upd["cand_wm"] = np.where(np.arange(n_total) < n_cand,
-                                  np.int64(dev.I64_MAX),
-                                  np.int64(tr_seed)).astype(np.int64)
-    if revision < 9 and "key_tab" in upd:
-        # Pre-9 tables stored exact 64-bit key words; the claim-is-first-
-        # record invariant can't be re-certified, so tombstone the table.
-        upd["key_tab"] = np.full(np.asarray(upd["key_tab"]).shape,
-                                 dev._FP_TOMB, np.int32)
-        if "key_wm" in upd:
-            upd["key_wm"] = np.full(np.asarray(upd["key_wm"]).shape,
-                                    dev.I64_MAX, np.int64)
-    # Snapshots predating the index families would restore empty buckets
-    # whose zero cursors claim completeness: poison trust (pre-6). Pre-7
-    # snapshots lack ann_poison and key_tab: poison those too.
-    pre_index = revision < 6
-    pre_poison = revision < 7
-    upd = {k: v for k, v in upd.items() if k in dev.FIELDS}
-    if "span_tab" in upd and np.asarray(upd["span_tab"]).dtype == np.int64:
-        # Pre-11 packed i64 words -> [H, 2] i32 planes: a lossless
-        # little-endian bitcast, gated on the stored dtype.
-        tab = np.asarray(upd["span_tab"])
-        if pre_poison:
-            tab = np.where(tab == 0, dev._TAB_EMPTY, tab)
-        tab = np.ascontiguousarray(tab)
-        upd["span_tab"] = tab.view(np.int32).reshape(tab.shape + (2,))
-    if legacy:
-        _migrate_legacy_live_links(data, upd, config)
-    if "dep_banks" not in upd:
-        # Pre-revision-3 snapshot: the saved dep_moments becomes the
-        # all-time tail, marked as covering every window.
-        if float(np.asarray(data["dep_moments"])[:, 0].sum()) > 0:
-            upd["dep_overflow_ts"] = np.array([dev.I64_MIN, dev.I64_MAX],
-                                              np.int64)
+    drops_init = int(states[0].counters["key_claim_drops"])
+    shards = [None] if not n_shards else list(range(n_shards))
+    restored = [_adapt(_Members(raw, i), revision, config, drops_init)
+                for i in shards]
+    clocks = meta.get("clocks")
     t0 = time.perf_counter()
-    # _cap_lock before _state_lock (the store's order): the capture
-    # clocks below are _cap_lock's, and _sealed_upto its leaf
-    # _seal_lock's, as the reference writes them.
-    with store._lock, store._cap_lock, store._state_lock:
-        leaves = store.state.leaves
-        for k, v in upd.items():
-            src = torch.from_numpy(np.asarray(v, order="C"))
-            cur = leaves[k]
-            if tuple(cur.shape) == tuple(src.shape) and cur.dtype == src.dtype:
-                cur.copy_(src)
-            else:
-                leaves[k] = src.to(store.device)
-        for k, v in counters.items():
-            leaves["counters"][k].fill_(int(np.asarray(v)))
-        if pre_index:
-            dev.poison_index_trust(store.state)
-        if pre_poison:
-            dev.poison_ann_trust(store.state)
-        if legacy:
-            # The pre-rev-4 schema had no span table: re-insert resident
-            # spans so post-restore children still find their parents.
-            dev.rebuild_span_tab(store.state)
-        if store.device.type == "cuda":
-            torch.cuda.synchronize(store.device)
-        times["h2d_s"] = time.perf_counter() - t0
-        # Re-seed the host clocks that pace bucket rotation — or, for
-        # revision-13 snapshots, restore them EXACTLY, so a WAL replay
-        # re-cuts the uncrashed drive's launches.
-        store._wp = int(store.state.write_pos)
-        store._archived = store._wp
-        clocks = meta.get("clocks")
-        if clocks:
-            store._archived = int(clocks["archived"])
-            store._batches_since_sweep = int(clocks["batches_since_sweep"])
-            store._awp = int(clocks["awp"])
-            store._bwp = int(clocks["bwp"])
-            store._cap_upto = int(clocks["cap_upto"])
-            store._cap_a = int(clocks["cap_a"])
-            store._cap_b = int(clocks["cap_b"])
-            with store._seal_lock:
-                store._sealed_upto = int(clocks["sealed_upto"])
-            store._wal_applied = int(clocks.get("wal_applied", 0))
+    if n_shards:
+        with store._lock, store._rw.write():
+            for st, (leaves, counters) in zip(states, restored):
+                _place(st, leaves, counters, revision, store.device)
+                if revision < 4:
+                    # The pre-rev-4 schema had no span table: re-insert
+                    # the resident spans so later children find parents.
+                    dev.rebuild_span_tab(st)
+        times["h2d_s"] = _synced(store.device, t0)
+        inner = store.inner
+        inner._wp_upper = max(int(st.write_pos) for st in states)
+        # Links resolve at ingest; the clock only paces time-bucket
+        # rotation, so resume it at "just rotated".
+        inner._archived_lower = inner._wp_upper
         # The restored aggregates were never deltas on this process's
-        # sketch mirror: ensure_sketch_mirror resyncs it on first read.
-        store.sketch_mirror.mark_cold()
-        # Paged layout (revision 18): restore the page allocator and
-        # table — or, for a paged config pointed at a snapshot saved
-        # without it, rebuild the table from the resident columns.
-        if store._planner is not None:
-            pmeta = meta.get("paged")
-            if pmeta:
-                store._planner.restore(pmeta)
-            else:
-                store._planner.rebuild(
-                    _to_host(store.state.row_gid),
-                    _to_host(store.state.trace_id),
-                    wal_applied=store._wal_applied)
-    arch = meta.get("archive")
-    if arch:
-        store = _restore_tiered(path, store, arch,
-                                exact_clocks=bool(meta.get("clocks")))
+        # per-shard mirror twins: resync lazily on the first sketch-tier
+        # read (FleetMirror.mark_cold cascades).
+        store._fleet_mirror.mark_cold()
+        if clocks and clocks.get("sharded"):
+            # Revision-16 sharded snapshots carry the fleet pacing
+            # clocks: restore them EXACTLY so a ShardedWal tail replay
+            # re-cuts the uncrashed fleet's launch units.
+            inner._wp_upper = int(clocks["wp_upper"])
+            inner._archived_lower = int(clocks["archived_lower"])
+            inner._batches_since_sweep = int(clocks["batches_since_sweep"])
+            # The store is load-local (not yet published to any reader
+            # or writer thread), so the bare clock store is race-free.
+            store._step_seq = int(  # graftlint: disable=guarded-by
+                clocks.get("step_seq", 0))
+            store._wal_applied = int(clocks.get("wal_applied", 0))
+    else:
+        leaves, counters = restored[0]
+        # _cap_lock before _state_lock (the store's order): the capture
+        # clocks below are _cap_lock's, and _sealed_upto its leaf
+        # _seal_lock's, as the reference writes them.
+        with store._lock, store._cap_lock, store._state_lock:
+            _place(store.state, leaves, counters, revision, store.device)
+            if revision < 4:
+                dev.rebuild_span_tab(store.state)
+            times["h2d_s"] = _synced(store.device, t0)
+            # Re-seed the host clocks that pace bucket rotation — or,
+            # for revision-13 snapshots, restore them EXACTLY, so a WAL
+            # replay re-cuts the uncrashed drive's launches.
+            store._wp = int(store.state.write_pos)
+            store._archived = store._wp
+            if clocks:
+                store._archived = int(clocks["archived"])
+                store._batches_since_sweep = int(
+                    clocks["batches_since_sweep"])
+                store._awp = int(clocks["awp"])
+                store._bwp = int(clocks["bwp"])
+                store._cap_upto = int(clocks["cap_upto"])
+                store._cap_a = int(clocks["cap_a"])
+                store._cap_b = int(clocks["cap_b"])
+                with store._seal_lock:
+                    store._sealed_upto = int(clocks["sealed_upto"])
+                store._wal_applied = int(clocks.get("wal_applied", 0))
+            # The restored aggregates were never deltas on this
+            # process's sketch mirror: ensure_sketch_mirror resyncs it
+            # on first read.
+            store.sketch_mirror.mark_cold()
+            # Paged layout (revision 18): restore the page allocator and
+            # table — or, for a paged config pointed at a snapshot saved
+            # without it, rebuild the table from the resident columns.
+            if store._planner is not None:
+                pmeta = meta.get("paged")
+                if pmeta:
+                    store._planner.restore(pmeta)
+                else:
+                    store._planner.rebuild(
+                        _to_host(store.state.row_gid),
+                        _to_host(store.state.trace_id),
+                        wal_applied=store._wal_applied)
+        arch = meta.get("archive")
+        if arch:
+            store = _restore_tiered(path, store, arch,
+                                    exact_clocks=bool(clocks))
     if stats is not None:
         stats.update(times)
         stats["total_s"] = time.perf_counter() - t_start
     return store
+
+
+def _synced(device, t0: float) -> float:
+    """Seconds since ``t0`` once ``device`` has finished its copies."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
 
 
 def _restore_tiered(path: str, store, arch: dict,
@@ -830,7 +996,9 @@ def _migrate_legacy_live_links(data, upd, config) -> None:
     reference) into the streaming-join window bank, and queue children
     whose parent was NOT resident into the pending ring (packed with the
     bit-identical host mixer), so a parent arriving after the upgrade
-    still links. An upgrade loses nothing."""
+    still links. An upgrade loses nothing. ``data`` is one state's
+    members (``_Members``): a fleet migrates shard by shard, each shard
+    reading its own slice of every stacked leaf."""
     from zipkin_tpu_torch.columnar.schema import FLAG_HAS_PARENT
     from zipkin_tpu_torch.ops.hashing import np_mix_keys64
 

@@ -6,6 +6,8 @@ Usage:
         [--memory-store] [--platform cpu]
 
     python -m zipkin_tpu_torch.main.example --wal-dir DIR --ship-port 9412
+    python -m zipkin_tpu_torch.main.example --shards 2 --wal-dir DIR
+        [--checkpoint DIR]
     python -m zipkin_tpu_torch.main.example --follow HOST:9412
         [--follow-mode replica|standby] [--checkpoint DIR]
 
@@ -16,9 +18,10 @@ daemon raises rather than fall back. ``--ship-port`` serves the WAL to
 replication followers; ``--follow`` runs a follower instead of a
 collector: a warm standby (a device store, on the card like a primary's,
 replaying every shipped record through the ingest step's kernels) or a
-device-free replica (host-only by design). ``--shards`` is not ported
-yet and refuses with a ``SystemExit`` naming the ROADMAP item it waits
-for.
+device-free replica (host-only by design). ``--shards N`` serves an
+N-shard ``parallel.ShardedSpanStore`` whose shards all live on the one
+device, journaled into a ``wal.ShardedWal`` with ``--wal-dir`` and
+snapshotted with ``--checkpoint``.
 
 Reference shape: zipkin-example's Main (scribe receiver + store + query
 + web in one process) and zipkin-deployment-collector's sampler wiring.
@@ -42,9 +45,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the in-memory reference store instead of "
                         "the device store")
     p.add_argument("--shards", type=int, default=0,
-                   help="serve from an N-shard sharded store (0 = "
-                        "single-device store); not wired yet: any "
-                        "other value refuses (ROADMAP Queue 1, item 6b)")
+                   help="serve from an N-shard ShardedSpanStore (0 = "
+                        "single-device store); all N shards live on "
+                        "--platform's one device, so no count of "
+                        "visible devices is needed; --wal-dir journals "
+                        "it into a sharded group-commit log")
     p.add_argument("--capacity", type=int, default=1 << 16,
                    help="span ring capacity (device store)")
     p.add_argument("--layout", default="ring",
@@ -192,16 +197,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for the flags whose modules the port does not have
-    yet, naming the ROADMAP item each waits for; never ignore them."""
-    if args.shards:
-        raise SystemExit(
-            "--shards: the daemon does not serve the sharded store "
-            "until its group-commit log and checkpoint are ported "
-            "(ROADMAP Queue 1, item 6b: sharded durability)")
-
-
 def build_app(args):
     from zipkin_tpu_torch.api.server import ApiServer
     from zipkin_tpu_torch.ingest.collector import Collector
@@ -209,7 +204,6 @@ def build_app(args):
     from zipkin_tpu_torch.sampler.adaptive import AdaptiveConfig
     from zipkin_tpu_torch.sampler.core import Sampler
 
-    refuse_unported(args)
     if args.ship_port and not args.wal_dir:
         # Refused before anything is built (the reference refuses once
         # the store is up; the message is its own).
@@ -220,11 +214,21 @@ def build_app(args):
             "--checkpoint requires a device store (the in-memory "
             "reference store has no snapshot support)"
         )
-    if args.layout != "ring" and args.memory_store:
-        raise SystemExit(
-            "--layout paged requires a device store (the "
-            "in-memory reference store has no span planes)"
-        )
+    if args.layout != "ring":
+        # The paged planner is per-store host state; the sharded
+        # store's shards have no per-shard planner yet, and the memory
+        # store has no device layout at all.
+        if args.memory_store:
+            raise SystemExit(
+                "--layout paged requires a device store (the "
+                "in-memory reference store has no span planes)"
+            )
+        if args.shards:
+            raise SystemExit(
+                "--layout paged requires the single-device store "
+                "(the sharded store's per-shard page planner is not "
+                "wired yet)"
+            )
     device = args.platform or "cuda"
     store = None
     if args.checkpoint:
@@ -239,12 +243,20 @@ def build_app(args):
             # restores with an EMPTY window arena at the flag
             # geometry; a rev-14+ snapshot's saved geometry wins, and
             # so does its capacity and kernel choice over the flags.
+            # A sharded snapshot restores a ShardedSpanStore (shard
+            # count from the snapshot; must match --shards if given).
             stats = {}
             store = checkpoint.load(args.checkpoint, device=device,
                                     config_defaults={
                                         "window_seconds": args.window_seconds,
                                         "window_buckets": args.window_buckets,
                                     }, stats=stats)
+            n = getattr(store, "n", 0)
+            if args.shards and n != args.shards:
+                raise SystemExit(
+                    f"checkpoint has {n or 1} shard(s); --shards "
+                    f"{args.shards} does not match"
+                )
             print(f"checkpoint: restored {args.checkpoint} in "
                   f"{stats['total_s']}s")
     if store is None:
@@ -257,6 +269,27 @@ def build_app(args):
             # scan path has no arena to disable).
             if args.window_seconds > 0:
                 store.window_seconds = args.window_seconds
+        elif args.shards:
+            from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
+            from zipkin_tpu_torch.store.device import StoreConfig
+
+            # Windowed analytics runs per shard (every shard step bumps
+            # its cell census); reads merge the shard mirrors' arenas
+            # lazily into the fleet view (store/mirror.FleetMirror).
+            store = ShardedSpanStore(
+                args.shards, StoreConfig(
+                    capacity=args.capacity,
+                    batch_spans=args.batch_spans,
+                    use_pallas=args.use_pallas,
+                    rank_path=args.rank_path,
+                    window_seconds=args.window_seconds,
+                    window_buckets=args.window_buckets,
+                ),
+                device=device,
+                dispatch_window_s=(
+                    args.query_window_ms / 1000.0
+                    if args.query_window_ms is not None else 0.0),
+            )
         else:
             from zipkin_tpu_torch.store.device import StoreConfig
             from zipkin_tpu_torch.store.torch_store import TorchSpanStore
@@ -283,6 +316,12 @@ def build_app(args):
                     "(the in-memory reference store has no ring to "
                     "capture)"
                 )
+            if getattr(store, "n", 0):
+                raise SystemExit(
+                    "--cold-tier requires the single-device store "
+                    "(the sharded store's per-shard capture is not "
+                    "wired yet)"
+                )
             from zipkin_tpu_torch.store.archive import TieredSpanStore
 
             store = TieredSpanStore(store, background_compaction=True)
@@ -297,14 +336,35 @@ def build_app(args):
                 "--wal-dir requires a device store (the in-memory "
                 "reference store has no journaled commit path)"
             )
-        from zipkin_tpu_torch.wal import WriteAheadLog, replay_into
-
-        wal = WriteAheadLog(
-            args.wal_dir, fsync=args.wal_fsync,
-            interval_s=args.wal_fsync_interval,
-            segment_bytes=args.wal_segment_bytes,
-            retain_bytes=args.wal_retain_bytes,
+        from zipkin_tpu_torch.wal import (
+            ShardedWal,
+            WriteAheadLog,
+            replay_into,
         )
+
+        n_shards = getattr(hot, "n", 0)
+        if n_shards:
+            # Per-shard segment logs + a group-commit epoch log: one
+            # journal entry per launch unit, recovery replays only
+            # COMPLETE epochs (wal/sharded.py).
+            if args.ship_port or args.wal_retain_bytes:
+                raise SystemExit(
+                    "--ship-port/--wal-retain-bytes are single-log "
+                    "features; the sharded group-commit log does not "
+                    "ship to followers yet"
+                )
+            wal = ShardedWal(
+                args.wal_dir, n_shards, fsync=args.wal_fsync,
+                interval_s=args.wal_fsync_interval,
+                segment_bytes=args.wal_segment_bytes,
+            )
+        else:
+            wal = WriteAheadLog(
+                args.wal_dir, fsync=args.wal_fsync,
+                interval_s=args.wal_fsync_interval,
+                segment_bytes=args.wal_segment_bytes,
+                retain_bytes=args.wal_retain_bytes,
+            )
         # Boot-time recovery: the checkpoint (restored above, or a
         # fresh store) is the base; every WAL record past its applied
         # sequence replays through the normal ingest path — capture,
@@ -337,7 +397,9 @@ def build_app(args):
         # Batch-lineage tracing: spans land through store.apply so they
         # live in the system's own store (and ride the WAL/ship path
         # like any span). attach_lineage is a no-op journal-wise until
-        # a WAL is attached.
+        # a single-log WAL is attached; the sharded group-commit log
+        # does not stamp lineage yet, but the tracker still collects
+        # dispatcher + API-parented spans there.
         tracker = fobs.LineageTracker(
             store.apply, registry=reg,
             sample_every=args.lineage_sample_every or None)
@@ -411,7 +473,6 @@ def build_follower_app(args):
     )
     from zipkin_tpu_torch.replicate.protocol import config_from_dict
 
-    refuse_unported(args)
     host, _, port = args.follow.rpartition(":")
     if not host or not port.isdigit():
         raise SystemExit(f"--follow wants HOST:PORT, got {args.follow!r}")

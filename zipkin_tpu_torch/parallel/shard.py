@@ -28,6 +28,7 @@ reference's one mapped launch steps them all: the per-shard counters,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,7 +69,7 @@ from zipkin_tpu_torch.store.base import (
     topk_ids_with_escalation,
 )
 from zipkin_tpu_torch.store.mirror import FleetMirror, SketchMirror
-from zipkin_tpu_torch.store.pipeline import IngestUnit
+from zipkin_tpu_torch.store.pipeline import IngestPipeline, IngestUnit
 from zipkin_tpu_torch.store.torch_store import (
     TorchSpanStore,
     _next_pow2,
@@ -78,13 +79,9 @@ from zipkin_tpu_torch.store.torch_store import (
     name_lc_ids,
     resolve_multi_probes,
 )
+from zipkin_tpu_torch.wal.record import dict_sizes, dump_dict_deltas
 
 DEP_SUMMARY_K = 1 << 14  # the single-store deps-read compaction bound
-
-# What waits for the next slice of the sharding work.
-_DEFERRED = ("{}: the sharded store's write-ahead log and pipelined "
-             "ingest are not ported yet (ROADMAP Queue 1, item 6b: "
-             "sharded durability)")
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -290,8 +287,12 @@ class ShardedSpanStore(WindowedAnalytics, SuspectGuard):
 
     Implements the surface the conformance suite drives against the
     in-memory and single-device stores (SpanStoreValidator.scala:27).
-    The sharded write-ahead log, pipelined ingest and checkpoint are
-    not ported yet; their entry points raise."""
+    Durable like the single store: ``attach_wal`` journals every launch
+    unit into a ``wal.ShardedWal`` (one part a shard plus the
+    group-commit epoch) before its commit, ``checkpoint.save`` /
+    ``load`` snapshot the fleet (each leaf stacked ``[n, ...]`` on the
+    host), ``wal.recover`` replays the log's tail, and ``pipelined``
+    runs the three-stage ingest pipeline over every shard's commit."""
 
     # Catalog keys the fused bundle read serves — everything the
     # dispatcher may merge into ONE read.
@@ -351,6 +352,14 @@ class ShardedSpanStore(WindowedAnalytics, SuspectGuard):
                          for _ in range(self.n)]
         self._fleet_mirror = FleetMirror(config, self._mirrors,
                                          lambda: self._step_seq)
+        # Durable write-ahead log (wal/sharded.ShardedWal) and pipelined
+        # ingest (store/pipeline): both optional, attached or started by
+        # the deployment wiring (main/example.py --wal-dir /
+        # --pipeline-depth).
+        self.wal = None
+        self._wal_marks = None  # guarded-by: _lock
+        self._wal_applied = 0
+        self._pipeline = None  # guarded-by: _lock
         self._registry = reg = registry or obs.default_registry()
         # Per-shard occupancy/lap gauges: hash-partition imbalance is
         # invisible in the summed counters() totals.
@@ -390,11 +399,16 @@ class ShardedSpanStore(WindowedAnalytics, SuspectGuard):
 
     def close(self) -> None:
         """Ordered shutdown of what the store runs: stop the dispatcher
-        (queued reads finish; later ones execute inline) and unregister
-        the per-shard gauge families."""
+        (queued reads finish; later ones execute inline), drain and stop
+        the pipeline, force the WAL durable, and unregister the
+        per-shard gauge families. The WAL itself stays open (its owner
+        closes it, after any final checkpoint truncation)."""
         d = self.__dict__.get("_dispatcher")
         if d is not None:
             d.close()
+        self.stop_pipeline(raise_errors=False)
+        if self.wal is not None:
+            self.wal.sync()
         for fam in (self.__dict__.get("_occ_family"),
                     self.__dict__.get("_laps_family")):
             if fam is not None and self._registry.get(fam.name) is fam:
@@ -475,6 +489,17 @@ class ShardedSpanStore(WindowedAnalytics, SuspectGuard):
             lc = name_lc_ids(batch, self.dicts, self._name_lc)
             parts.append((batch, lc, indexable))
         unit = self._build_unit(parts)
+        if self.wal is not None:
+            # Journal BEFORE the commit (ack-after-append) and under
+            # self._lock, so append order == encode order == commit
+            # order — the property the dictionary-delta replay chain
+            # depends on.
+            unit = unit._replace(wal_seq=self._journal_unit(parts))
+        if self._pipeline is not None:
+            # Pipelined sharded ingest: stage 2 copies the unit's shard
+            # batches to the device, stage 3 runs _commit_unit.
+            self._pipeline.feed(unit)
+            return
         unit = unit._replace(db=self.stage_unit(unit.db))
         self._commit_unit(unit)
 
@@ -509,55 +534,130 @@ class ShardedSpanStore(WindowedAnalytics, SuspectGuard):
             sum(b.n_spans for b in batches),
             sum(b.n_annotations for b in batches),
             sum(b.n_binary for b in batches),
-            self.n, False, sketch=sketch,
+            # chained: the pipeline's stage 2 unstacks the db into one
+            # batch a shard and copies them to the device together.
+            self.n, True, sketch=sketch,
             # incoming from the HOST batches, never read off the device
             # inside the write hold.
             incoming=max(b.n_spans for b in batches),
         )
 
     def stage_unit(self, db) -> Tuple:
-        """Stage-2 H2D: the host-stacked batch becomes one device batch
-        a shard, before the commit takes the write lock."""
+        """Stage-2 H2D of the serial path and of WAL replay: the
+        host-stacked batch becomes one device batch a shard, before the
+        commit takes the write lock. (The pipeline's stage thread
+        copies a unit's shard batches on a stream of its own.)"""
         return shard_device_batches(db, self.device)
 
     def _commit_unit(self, unit: IngestUnit) -> None:
-        """Stage 3 — the commit body: every shard's step and the
-        cross-shard summary under the WRITE lock (which excludes every
-        reader, so ingest never overlaps a fused read and needs no
-        _coll_lock). Mirror deltas fold inside the same hold, BEFORE the
-        frontier bump, so a sketch-tier read at frontier F already
-        includes commit F."""
+        """Stage 3 — the ONE commit body behind the serial writer, the
+        pipeline's commit thread and WAL replay: every shard's step and
+        the cross-shard summary under the WRITE lock (which excludes
+        every reader, so ingest never overlaps a fused read and needs no
+        _coll_lock). A unit the pipeline staged brings its device
+        batches, and the step waits for their copy; otherwise ``db``
+        holds them (``stage_unit``). Mirror deltas fold inside the same
+        hold, BEFORE the frontier bump, so a sketch-tier read at
+        frontier F already includes commit F; the applied WAL sequence
+        advances in the same hold, so a checkpoint's cut pairs with
+        it."""
         self.ensure_writable()
+        if unit.staged is None:
+            batches = unit.db
+        else:
+            batches, buf, done = unit.staged
+            dev.await_staged(buf, done, self.device)
         with self._rw.write():
-            self.inner.step(unit.db, unit.incoming)
+            self.inner.step(batches, unit.incoming)
             if unit.sketch is not None:
                 for m, d in zip(self._mirrors, unit.sketch):
                     m.apply(d)
             self._step_seq += 1
+            if unit.wal_seq is not None:
+                self._wal_applied = unit.wal_seq
 
-    # -- not ported yet: the sharded log and pipelined ingest ------------
+    # -- durable write-ahead log (wal/sharded.ShardedWal) ----------------
 
     def attach_wal(self, wal) -> None:
-        raise NotImplementedError(_DEFERRED.format("attach_wal"))
+        """Journal every later launch unit into ``wal`` (a ShardedWal:
+        one segment log a shard plus the group-commit epoch log) before
+        its commit. Attach before live writes: units committed earlier
+        are covered only by checkpoints. The store does not own the
+        log: callers close() it after the store."""
+        with self._lock:
+            self.wal = wal
+            self._wal_marks = dict_sizes(self.dicts)
 
-    def _journal_unit(self, parts) -> int:
-        raise NotImplementedError(_DEFERRED.format("_journal_unit"))
+    def _journal_unit(self, parts) -> int:  # called-under: _lock
+        """Append one sharded launch unit — every shard's part plus the
+        dictionary entries its encode step added — as one group-commit
+        epoch; returns the epoch sequence. Runs on the encoding thread
+        under self._lock."""
+        sizes, deltas = dump_dict_deltas(self.dicts, self._wal_marks)
+        seq = self.wal.append_unit(parts, self._wal_marks, deltas)
+        self._wal_marks = sizes
+        return seq
 
     def wal_sync(self) -> None:
-        raise NotImplementedError(_DEFERRED.format("wal_sync"))
+        """Force the attached WAL durable; no-op without one."""
+        if self.wal is not None:
+            self.wal.sync()
+
+    # -- pipelined ingest lifecycle (store/pipeline) ---------------------
+
+    PIPELINE_DEPTH = 8
+    STAGE_BUFFERS = 2
 
     def start_pipeline(self, depth: Optional[int] = None,
-                       stage_buffers: Optional[int] = None):
-        raise NotImplementedError(_DEFERRED.format("start_pipeline"))
+                       stage_buffers: Optional[int] = None
+                       ) -> IngestPipeline:
+        """Switch the write path to the three-stage ingest pipeline:
+        apply() becomes stage 1 (encode, partition, pad and host stack,
+        outside the device critical section), a stage thread copies
+        each unit's shard batches to the device, and a commit thread
+        holds the write lock only for the shard steps. The same quiesce
+        rules as TorchSpanStore."""
+        with self._lock:
+            if self._pipeline is not None:
+                raise RuntimeError("ingest pipeline already running")
+            self._pipeline = IngestPipeline(
+                self, depth or self.PIPELINE_DEPTH,
+                stage_buffers or self.STAGE_BUFFERS,
+                registry=self._registry)
+            return self._pipeline
 
     def drain_pipeline(self) -> None:
-        raise NotImplementedError(_DEFERRED.format("drain_pipeline"))
+        """Block until every accepted batch is committed on every shard
+        (no-op when no pipeline runs); re-raises a parked pipeline
+        error."""
+        with self._lock:
+            p = self._pipeline
+        if p is not None:
+            p.drain()
 
     def stop_pipeline(self, raise_errors: bool = True) -> None:
-        raise NotImplementedError(_DEFERRED.format("stop_pipeline"))
+        """Drain, stop the pipeline threads and return to the serial
+        write path — quiesced UNDER the encode lock with the pipeline
+        still published (two concurrent device writers would break the
+        ring-scatter contract; see TorchSpanStore.stop_pipeline)."""
+        with self._lock:
+            p = self._pipeline
+            if p is None:
+                return
+            p.stop()
+            self._pipeline = None
+        err = p.take_error()
+        if raise_errors and err is not None:
+            raise err
 
+    @contextlib.contextmanager
     def pipelined(self, depth: Optional[int] = None):
-        raise NotImplementedError(_DEFERRED.format("pipelined"))
+        """Scoped pipelined ingest: drains and stops on exit."""
+        pipe = self.start_pipeline(depth)
+        try:
+            yield pipe
+        finally:
+            self.stop_pipeline()
 
     # -- query-engine hooks (query/engine.py) ----------------------------
 

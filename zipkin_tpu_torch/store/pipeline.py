@@ -58,7 +58,8 @@ _STOP = object()
 
 class IngestUnit(NamedTuple):
     """One committed launch's worth of work: a padded numpy DeviceBatch
-    (stacked along a leading axis when ``chained``) plus the host
+    (stacked along a leading axis when ``chained``: a chained group's
+    chunks, or a sharded unit's shards) plus the host
     bookkeeping the commit stage needs. ``n_parts`` is the number of
     chunker parts inside (the sweep-cadence increment). ``wal_seq`` is
     the unit's write-ahead-log sequence (None when no WAL is attached);
@@ -180,8 +181,9 @@ class _StageBase:
 
 
 class IngestPipeline(_StageBase):
-    """Three-stage ingest pipeline over one TorchSpanStore (see the
-    module docstring). Created by ``TorchSpanStore.start_pipeline``;
+    """Three-stage ingest pipeline over one TorchSpanStore or one
+    ``parallel.ShardedSpanStore`` (see the module docstring). Created by
+    the store's ``start_pipeline``;
     writers call ``feed`` (stage 1's tail)."""
 
     def __init__(self, store, depth: int, stage_buffers: int,

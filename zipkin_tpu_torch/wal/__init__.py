@@ -15,8 +15,11 @@ The port's copy of ``zipkin_tpu/wal``:
 Ack contract: with a WAL attached, ``TorchSpanStore.apply`` returns
 only after the batch's launch units are APPENDED; receivers that
 promise durability additionally wait on the durable frontier
-(``WriteAheadLog.wait_durable``). Sharded logs (``ShardedWal``) come
-with the sharding slice.
+(``WriteAheadLog.wait_durable``).
+
+``ShardedWal`` (wal/sharded.py) journals a sharded store: one segment
+log per shard plus a group-commit epoch log; ``replay_sharded_into``
+replays its complete epochs into a ``parallel.ShardedSpanStore``.
 """
 
 from zipkin_tpu_torch.wal.log import (
@@ -29,14 +32,18 @@ from zipkin_tpu_torch.wal.recovery import (
     apply_record_into,
     recover,
     replay_into,
+    replay_sharded_into,
 )
+from zipkin_tpu_torch.wal.sharded import ShardedWal
 
 __all__ = [
     "FsyncPolicy",
     "WalDurabilityError",
     "WriteAheadLog",
     "WalReplayError",
+    "ShardedWal",
     "apply_record_into",
     "recover",
     "replay_into",
+    "replay_sharded_into",
 ]

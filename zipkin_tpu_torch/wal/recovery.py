@@ -14,8 +14,9 @@ stated tolerance, ``testing/crash.py``); batches whose append never
 reached the log (or sat past a torn tail) are absent in full — never
 partially applied.
 
-Sharded logs (``replay_sharded_into``, ``ShardedWal``) come with the
-sharding slice; a log with ``replay_units`` is refused.
+A ``ShardedWal`` replays into a ``parallel.ShardedSpanStore`` through
+``replay_sharded_into``: every complete epoch re-cut by the fleet's
+own stage-1/stage-3 bodies, so each shard steps exactly as it did.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 
 from zipkin_tpu_torch.columnar.encode import to_signed64
+from zipkin_tpu_torch.store.base import MAX_TTL_ENTRIES, prune_ttls
 from zipkin_tpu_torch.wal.record import (
     WalReplayError,
     apply_dict_deltas,
@@ -42,6 +44,25 @@ def pin_tids_of(hot) -> Optional[np.ndarray]:
             if hot.pins else None)
 
 
+def _bank_replayed(store, parts, pin_tids: Optional[np.ndarray]) -> None:
+    """Give every trace of a replayed unit's parts its TTL and bank the
+    spans of pinned traces, as live ingest does; the caller holds the
+    store's lock. Serves the single store and the fleet alike."""
+    from zipkin_tpu_torch.store.torch_store import TorchSpanStore
+
+    for batch, _lc, _ix in parts:
+        for tid in np.unique(batch.trace_id):
+            store.ttls.setdefault(int(tid), 1.0)
+        if pin_tids is not None and len(pin_tids):
+            keep = np.isin(batch.trace_id, pin_tids)
+            if keep.any():
+                pinned = TorchSpanStore._select_batch(batch, keep)
+                store._bump_read_epoch()
+                store.pins.note_write(
+                    to_signed64, store.codec.decode(pinned))
+    prune_ttls(store.ttls, MAX_TTL_ENTRIES)
+
+
 def apply_record_into(hot, seq: int, payload: bytes,
                       pin_tids: Optional[np.ndarray] = None) -> int:
     """Drive ONE journaled record through the store's normal commit
@@ -55,19 +76,44 @@ def apply_record_into(hot, seq: int, payload: bytes,
     # planned (pipelined-save window) instead of re-planning them.
     unit = hot._pad_unit(group, wal_seq=seq)._replace(wal_seq=seq)
     with hot._lock:
-        for batch, _lc, _ix in group:
-            for tid in np.unique(batch.trace_id):
-                hot.ttls.setdefault(int(tid), 1.0)
-            if pin_tids is not None and len(pin_tids):
-                keep = np.isin(batch.trace_id, pin_tids)
-                if keep.any():
-                    pinned = hot._select_batch(batch, keep)
-                    hot._bump_read_epoch()
-                    hot.pins.note_write(
-                        to_signed64, hot.codec.decode(pinned))
-        hot._prune_ttls()
+        _bank_replayed(hot, group, pin_tids)
         hot._commit_unit(unit)
     return unit.n_spans
+
+
+def replay_sharded_into(store, wal,
+                        from_seq: Optional[int] = None) -> dict:
+    """Sharded twin of ``replay_into``: drive every COMPLETE epoch of
+    a ShardedWal past ``from_seq`` through the sharded store's normal
+    stage-1/stage-3 bodies (``_build_unit`` → ``stage_unit`` →
+    ``_commit_unit``), so an n-shard recovery re-cuts the uncrashed
+    fleet's launch units — every shard's state, sketch-mirror twin and
+    the fleet frontier land where an uncrashed fleet's would."""
+    if from_seq is None:
+        from_seq = int(getattr(store, "_wal_applied", 0))
+    t0 = time.perf_counter()
+    n_records = 0
+    n_spans = 0
+    pin_tids = pin_tids_of(store)
+    for seq, parts, before, deltas in wal.replay_units(from_seq):
+        apply_dict_deltas(store.dicts, before, deltas)
+        with store._lock:
+            unit = store._build_unit(parts)._replace(wal_seq=seq)
+            _bank_replayed(store, parts, pin_tids)
+            unit = unit._replace(db=store.stage_unit(unit.db))
+            store._commit_unit(unit)
+        n_spans += unit.n_spans
+        wal.c_replayed.inc()
+        n_records += 1
+    with store._lock:
+        store._wal_marks = dict_sizes(store.dicts)
+    return {
+        "replayed_records": n_records,
+        "replayed_spans": n_spans,
+        "replay_s": time.perf_counter() - t0,
+        "applied_seq": int(store._wal_applied),
+        "torn_records_cut": int(wal.torn_records_cut),
+    }
 
 
 def replay_into(store, wal, from_seq: Optional[int] = None) -> dict:
@@ -75,12 +121,11 @@ def replay_into(store, wal, from_seq: Optional[int] = None) -> dict:
     store's restored applied frontier) through the normal ingest path.
     Accepts a TorchSpanStore or a TieredSpanStore (replay routes through
     the hot store; an attached eviction sink captures and seals exactly
-    as live ingest would). Returns replay stats."""
+    as live ingest would), or a ShardedSpanStore paired with a
+    ShardedWal (dispatched to ``replay_sharded_into``). Returns replay
+    stats."""
     if hasattr(wal, "replay_units"):
-        raise NotImplementedError(
-            "sharded logs replay into sharded stores through the "
-            "sharded replay, which the port does not have yet (ROADMAP "
-            "Queue 1, item 6b: sharded durability)")
+        return replay_sharded_into(store, wal, from_seq)
     hot = getattr(store, "hot", store)
     if from_seq is None:
         from_seq = int(getattr(hot, "_wal_applied", 0))
@@ -115,7 +160,10 @@ def recover(checkpoint_dir: Optional[str], wal,
     ``checkpoint_dir`` onto ``device`` (falling back to ``.old``,
     exactly like checkpoint.load), or build a fresh store with
     ``fresh_store(device)`` when no checkpoint exists yet, then attach
-    ``wal`` and replay its tail. Returns (store, stats); with a
+    ``wal`` and replay its tail. A sharded snapshot restores a
+    ``ShardedSpanStore`` with the snapshot's shard count, and a
+    ``ShardedWal`` replays into it (there is no mesh to pass: the
+    shards share ``device``). Returns (store, stats); with a
     checkpoint, ``stats["load"]`` holds the load's phase seconds. The
     store is ready for live ingest: appends continue after the last
     replayed sequence and journal dictionary deltas from the replayed
