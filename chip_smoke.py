@@ -139,10 +139,11 @@ nvcc per source, started together), then
    latencies, ``write_thrift``'s split (lock wait, parse + intern, chunk
    + pad, commit) and the idle share over the drive (taken under the
    CUDA-only profiler, as the drive's spans/s are);
-14. the daemon's read path at full width (``query_path``):
-   ``QueryService(store)`` with the daemon's 2 ms window over the window
-   store, loaded with 12 launches of the stream and 100 known traces on
-   five services of their own; eight reader threads send ~600
+14. the daemon's read path at the full configuration's widths with a
+   2^21 span ring (``query_path``): ``QueryService(store)`` with the
+   daemon's 2 ms window over the window store, loaded with 12 launches
+   of the stream and 100 known traces on five services of their own;
+   eight reader threads send ~600
    ``get_trace_ids`` requests (by service, span name, annotation and
    binary annotation, limits 10 and 100, each order, a tenth with two
    or three terms, drawn with repeats) and ~200 sketch reads while the
@@ -283,7 +284,29 @@ nvcc per source, started together), then
    first unit, each unit's ms split (host encode and build, the shard
    steps, the summary), the reduction's ms, read ms p50/p99 by kind and
    the peak device memory, beside the card's name and power limit;
-19. sharded durability (``sharded_durability_path``): a 2-shard
+19. multi-process sharding (``multihost_path``, right after
+   ``sharded_path``): two processes on the one card, each started with
+   ``python3 -c "import chip_smoke; chip_smoke.multihost_worker(...)"``
+   before ``sharded_path`` (their start, rendezvous and decode run
+   beside it), join one gloo group through
+   ``parallel.multihost.initialize`` and build the global view with
+   ``global_mesh(local_shards=2)``: 4 global shards, process p owning
+   [2p, 2p + 2). Each decodes ``sharded_path``'s first unit (114,688
+   spans) and its 100 known traces, keeps what ``route_spans(...,
+   keep=local_shard_ids(mesh))`` gives it, and, once ``sharded_path``
+   has freed the card, applies it to a ``ShardedSpanStore(2)`` at the
+   full configuration (2 x ~4.8 GB a process). Every kept span must sit
+   on the local slot of its global shard; K1, the claim and the write
+   must launch once a shard step, both counted (the ``multihost`` entry
+   of ``launches_by_path``, both workers summed); over gloo the kept
+   trace sets must be disjoint, cover the unit and lie on shards their
+   keeper owns; each owner's reads of its known traces (spans and
+   durations) must equal ``sharded_path``'s 4-shard fleet's. A worker
+   that fails, hangs or exits non-zero fails the phase with its stderr,
+   and both are killed; a rendezvous whose port was taken meanwhile is
+   started again on a fresh one. It prints each worker's ready seconds
+   (spawn to global view), apply spans/s and peak device memory;
+20. sharded durability (``sharded_durability_path``): a 2-shard
    ``ShardedSpanStore`` at the full configuration journals into a
    ``ShardedWal`` at fsync ``batch`` through ``pipelined(depth=4)``: 2
    of ``sharded_path``'s units, ``checkpoint.save`` (every leaf stacked
@@ -439,11 +462,13 @@ class Scale:
             self.collector_log2, self.scribe_call = 22, 2048
             self.prep_workers = 5
             # The query phase: 12 + 4 launches (1,835,008 spans) stay
-            # inside one lap of the 2^22 ring, so no known trace laps;
-            # ~600 requests drawn from a pool of 160 (repeats; 2,000
-            # before the replication phase came, 1,200 before the Kafka
-            # drive, 800 before the sharded phase).
-            self.query_log2, self.query_launches = 22, 12
+            # inside one lap of a 2^21 ring (2^22 before the
+            # multi-process phase: the save its readers read beside
+            # shrinks with the ring), so no known trace laps; ~600
+            # requests drawn from a pool of 160 (repeats; 2,000 before
+            # the replication phase came, 1,200 before the Kafka drive,
+            # 800 before the sharded phase).
+            self.query_log2, self.query_launches = 21, 12
             self.query_requests, self.query_pool = 600, 160
             # The fleet phase's overhead rounds: 3 journaled launches a
             # round (~0.45 s each), three rounds a store after a warm one.
@@ -490,12 +515,14 @@ class Scale:
         self.cold_launches = -(-(1 << self.cold_log2)
                                // (self.batch_traces * 7)) + 2
         # A daemon boot is held to this many of the stream's traces
-        # (100 before the sharded phase) and each service's queries.
-        self.boot_traces = 50
+        # (100 before the sharded phase, 50 before the multi-process
+        # phase) and each service's queries.
+        self.boot_traces = 25
         # The sharded daemon's boots read back this many of the 100 known
         # traces (each read is an API self-trace span, one journaled unit
-        # of the fleet) and the known services' queries.
-        self.shard_daemon_known = 25
+        # of the fleet) and the known services' queries (25 before the
+        # multi-process phase).
+        self.shard_daemon_known = 15
 
 
 # ---------------------------------------------------------------------------
@@ -5362,7 +5389,8 @@ def request_split(reqs, launches, pauses, long_ms: float = 10.0):
 
 
 def query_path(torch, K, dev, scale, device):
-    """The daemon's read path at full width (``example.py:439-442``):
+    """The daemon's read path at the full widths with a
+    ``Scale.query_log2`` span ring (``example.py:439-442``):
     ``QueryService(store)`` with the 2 ms window over the window store,
     part of a lap of the stream and 100 known traces of five services
     of their own; eight readers send the request mix while the store
@@ -7059,6 +7087,7 @@ def sharded_path(torch, K, dev, scale, device, smi):
     per_unit = [{"host_encode_build_ms": (a - s) * 1e3,
                  "steps_ms": (s - m) * 1e3, "summary_ms": m * 1e3}
                 for a, s, m in zip(apply_s, step_s, summary_s)]
+    known_reads = known_read_digests(fleet, [tr[0].trace_id for tr in known])
     fleet.close()
     del fleet
     free_card(torch, device)
@@ -7075,7 +7104,332 @@ def sharded_path(torch, K, dev, scale, device, smi):
         "parity_spans": parity_spans, "card": smi,
         "kernel_launches": launches, "ingest_steps": steps}
     log(f"sharded path result ({smi}): " + json.dumps(result))
-    return result, units
+    return result, units, known_reads
+
+
+def known_read_digests(store, tids):
+    """{trace id: sha256} of each trace's reads: its spans as a set and
+    its duration."""
+    import hashlib
+
+    durations = {d.trace_id: d for d in store.get_traces_duration(tids)}
+    out = {}
+    for spans in store.get_spans_by_trace_ids(tids):
+        tid = spans[0].trace_id
+        text = repr((sorted(repr(s) for s in spans), durations.get(tid)))
+        out[str(tid)] = hashlib.sha256(text.encode()).hexdigest()
+    return out
+
+
+MULTIHOST_PROCS = 2
+MULTIHOST_LOCAL = 2
+# Every wait of the multi-process phase: a worker's start, rendezvous
+# and unit decode, then its card drive.
+MULTIHOST_WAIT_S = 600
+MULTIHOST_BIND_TRIES = 3
+MULTIHOST_READY = "multihost worker ready"
+
+
+def multihost_worker(coordinator: str, pid: int, device: str,
+                     rehearse: bool) -> None:
+    """One process of ``multihost_path``, run as ``python3 -c "import
+    chip_smoke; chip_smoke.multihost_worker(...)"``: joins the gloo group
+    of ``MULTIHOST_PROCS`` processes through ``multihost.initialize``,
+    builds the global view with ``MULTIHOST_LOCAL`` shard slots a
+    process, decodes ``sharded_path``'s first unit and its known traces
+    and routes them to the shards it owns; prints ``MULTIHOST_READY``
+    and waits for ``go`` on its standard input before it touches the
+    card's memory. Then a ``ShardedSpanStore(MULTIHOST_LOCAL)`` at
+    config #2 takes the kept unit and the kept known traces through
+    ``apply``; every kept span must sit on the local slot of its global
+    shard, K1, the claim and the write must launch once a shard step
+    (both counted), and the owned known traces must read back whole.
+    The kept trace ids, span counts and read digests are gathered over
+    gloo, and each process checks that the kept and the read trace sets
+    are disjoint, cover the unit and its known traces, and lie on
+    shards their keeper owns.
+    The last line of its standard output is its JSON result."""
+    import torch
+    import torch.distributed as dist
+
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.columnar.encode import SpanCodec
+    from zipkin_tpu_torch.ops import kernels as K
+    from zipkin_tpu_torch.parallel import multihost as mh
+    from zipkin_tpu_torch.parallel import shard as shard_mod
+    from zipkin_tpu_torch.store import device as dev
+    from zipkin_tpu_torch.tracegen import ColumnarTraceGen
+
+    what = f"multihost worker {pid}"
+    scale = Scale(rehearse)
+    card = torch.device(device)
+    n = MULTIHOST_PROCS * MULTIHOST_LOCAL
+    base = MULTIHOST_LOCAL * pid
+    out = {"pid": pid}
+    t = time.perf_counter()
+    mh.initialize(coordinator, MULTIHOST_PROCS, pid)
+    mesh = mh.global_mesh(local_shards=MULTIHOST_LOCAL)
+    out["mesh_wall"] = time.time()
+    out["initialize_s"] = time.perf_counter() - t
+    local = mh.local_shard_ids(mesh)
+    if (mesh.shape["shard"] != n or len(mesh.devices) != n
+            or local != list(range(base, base + MULTIHOST_LOCAL))
+            or mh.partitions_for_process(mesh) != local):
+        fail(f"{what}: the global view {mesh} gives local shards {local}")
+    t = time.perf_counter()
+    codec = SpanCodec()
+    gen = ColumnarTraceGen(codec.dicts,
+                           n_services=scale.services - len(COLD_SERVICES),
+                           n_span_names=scale.names - len(COLD_OPS),
+                           topology=True, seed=71)
+    batch, _, _ = gen.next_batch(scale.batch_traces, base_ts=WIN_BASE_US)
+    unit = codec.decode(batch)
+    known = cold_known(scale.cold_known, 72, WIN_BASE_US + WIN_US)
+    feed = [unit, [s for tr in known for s in tr]]
+    routed = [mh.route_spans(spans, n, keep=local) for spans in feed]
+    out["unit_s"] = time.perf_counter() - t
+    print(MULTIHOST_READY, flush=True)
+    if sys.stdin.readline().strip() != "go":
+        fail(f"{what}: no go from the parent")
+    cfg = full_config(dev, scale.cap_log2, scale.services)
+    t = time.perf_counter()
+    fleet = shard_mod.ShardedSpanStore(MULTIHOST_LOCAL, cfg, device=device,
+                                       registry=obs.Registry())
+    step_s, summary_s = [], []
+    _timed_calls(torch, card, fleet.inner, "step", step_s)
+    _timed_calls(torch, card, shard_mod, "_summarize", summary_s)
+    try:
+        sync(torch, card)
+        out["fleet_s"] = time.perf_counter() - t
+        K.reset_launches()
+        out["apply_s"], out["spans_kept"] = [], []
+        for groups in routed:
+            spans = [s for sid in sorted(groups) for s in groups[sid]]
+            for sid, group in groups.items():
+                if any(fleet._shard_of(s.trace_id) != sid - base
+                       for s in group):
+                    fail(f"{what}: a span of global shard {sid} does not "
+                         f"sit on local slot {sid - base}")
+            sync(torch, card)
+            t = time.perf_counter()
+            fleet.apply(spans)
+            sync(torch, card)
+            out["apply_s"].append(time.perf_counter() - t)
+            out["spans_kept"].append(len(spans))
+        launches = dict(K.LAUNCHES)
+        out["per_apply"] = [{"host_encode_build_ms": (a - st) * 1e3,
+                             "steps_ms": (st - m) * 1e3,
+                             "summary_ms": m * 1e3}
+                            for a, st, m in zip(out["apply_s"], step_s,
+                                                summary_s)]
+        steps = sum(int(b["batches"]) for b in fleet.shard_counters())
+        if steps != MULTIHOST_LOCAL * len(routed):
+            fail(f"{what}: {steps} shard steps in {len(routed)} applies")
+        if card.type == "cuda":
+            for k in ("flat_histogram", "arena_claim", "arena_write"):
+                if launches[k] != steps:
+                    fail(f"{what}: {k} launched {launches[k]} times in "
+                         f"{steps} shard steps")
+        t = time.perf_counter()
+        owned = [tr for tr in known if mh.shard_of(tr[0].trace_id, n) in local]
+        tids = [tr[0].trace_id for tr in owned]
+        if [len(t) for t in fleet.get_spans_by_trace_ids(tids)] != [
+                len(tr) for tr in owned]:
+            fail(f"{what}: an owned known trace did not read back whole")
+        out["reads"] = known_read_digests(fleet, tids)
+        out["reads_s"] = time.perf_counter() - t
+        out["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                    if card.type == "cuda" else 0)
+        out["kernel_launches"], out["ingest_steps"] = launches, steps
+        out["write_pos_by_shard"] = [int(b["write_pos"])
+                                     for b in fleet.shard_counters()]
+    finally:
+        fleet.close()
+    t = time.perf_counter()
+    kept = sorted({s.trace_id for groups in routed
+                   for g in groups.values() for s in g})
+    gathered = [None] * MULTIHOST_PROCS
+    dist.all_gather_object(gathered, {"pid": pid, "kept": kept,
+                                      "spans": sum(out["spans_kept"]),
+                                      "reads": out["reads"]})
+    out["gather_s"] = time.perf_counter() - t
+    owner = [p for p, _, _ in mesh.devices]
+    for key, want in (("kept", {s.trace_id for spans in feed
+                                for s in spans}),
+                      ("reads", {str(tr[0].trace_id) for tr in known})):
+        sets = [set(g[key]) for g in gathered]
+        if any(a & b for i, a in enumerate(sets) for b in sets[i + 1:]):
+            fail(f"{what}: two processes hold the same trace ({key})")
+        if set().union(*sets) != want:
+            fail(f"{what}: the processes' traces ({key}) do not cover the "
+                 f"unit's")
+    if sum(g["spans"] for g in gathered) != sum(len(s) for s in feed):
+        fail(f"{what}: the kept spans do not add up to the unit's")
+    for g in gathered:
+        if any(owner[mh.shard_of(t, n)] != g["pid"] for t in g["kept"]):
+            fail(f"{what}: process {g['pid']} kept a trace of a shard it "
+                 f"does not own")
+    out["kept_traces_by_process"] = [len(g["kept"]) for g in gathered]
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+class MultihostWorkers:
+    """The ``MULTIHOST_PROCS`` processes of ``multihost_path``, spawned
+    before ``sharded_path`` so that their start, rendezvous and unit
+    decode run beside it; ``go()`` lets them onto the card. A rendezvous
+    that lost its port (``Address already in use``) spawns both again
+    on a fresh one, up to ``MULTIHOST_BIND_TRIES`` times."""
+
+    def __init__(self, device, rehearse: bool):
+        self.device, self.rehearse = device, rehearse
+        self.work = tempfile.mkdtemp(prefix="zipkin-multihost-")
+        self.env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=HERE)
+        if device.type == "cuda":
+            # No toolkit in reach: a worker that tried to build a kernel
+            # would fail, so the drive proves it loads the built ones.
+            self.env["CUDA_HOME"] = os.path.join(self.work, "no-cuda-toolkit")
+        self.procs, self.tries = [], 0
+        self._spawn()
+
+    def _path(self, pid, stream):
+        return os.path.join(self.work, f"worker{pid}.{stream}")
+
+    def _spawn(self):
+        self.tries += 1
+        coordinator = f"127.0.0.1:{free_port()}"
+        self.spawned = time.time()
+        self.procs = []
+        for pid in range(MULTIHOST_PROCS):
+            code = (f"import chip_smoke; chip_smoke.multihost_worker("
+                    f"{coordinator!r}, {pid}, {self.device.type!r}, "
+                    f"{self.rehearse})")
+            with open(self._path(pid, "out"), "w") as o, \
+                    open(self._path(pid, "err"), "w") as e:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code], cwd=HERE, env=self.env,
+                    stdin=subprocess.PIPE, stdout=o, stderr=e, text=True,
+                    start_new_session=True))
+
+    def _read(self, pid, stream):
+        with open(self._path(pid, stream)) as f:
+            return f.read()
+
+    def _failed(self, pid, why):
+        tail = self._read(pid, "err")[-3000:]
+        self.close()
+        fail(f"multihost path: worker {pid} {why}; its stderr ends:\n{tail}")
+
+    def _await(self, done):
+        """Polls until ``done(pid)`` holds for every worker; a worker that
+        exits first (or a wait past ``MULTIHOST_WAIT_S``) fails the
+        phase. Returns the pid of a worker that lost its port instead."""
+        deadline = time.monotonic() + MULTIHOST_WAIT_S
+        while True:
+            if all(done(pid) for pid in range(MULTIHOST_PROCS)):
+                return None
+            for pid, p in enumerate(self.procs):
+                if p.poll() is not None and not done(pid):
+                    if "address already in use" in self._read(
+                            pid, "err").lower():
+                        return pid
+                    self._failed(pid, f"exited {p.returncode}")
+            if time.monotonic() > deadline:
+                late = next(pid for pid in range(MULTIHOST_PROCS)
+                            if not done(pid))
+                self._failed(late, f"did not finish in {MULTIHOST_WAIT_S} s")
+            time.sleep(0.2)
+
+    def go(self):
+        """Waits for every worker's ready line, then lets them onto the
+        card."""
+        while True:
+            lost = self._await(
+                lambda pid: MULTIHOST_READY in self._read(pid, "out"))
+            if lost is None:
+                break
+            if self.tries >= MULTIHOST_BIND_TRIES:
+                self._failed(lost, "lost its rendezvous port every time")
+            self._stop()
+            self._spawn()
+        for pid, p in enumerate(self.procs):
+            try:
+                p.stdin.write("go\n")
+                p.stdin.close()
+            except BrokenPipeError:
+                self._failed(pid, "ended before the go")
+
+    def wait(self):
+        """Every worker's JSON result, once all have exited 0."""
+        lost = self._await(lambda pid: self.procs[pid].poll() == 0)
+        if lost is not None:
+            self._failed(lost, "lost its port on the card drive")
+        return [json.loads(self._read(pid, "out").strip().splitlines()[-1])
+                for pid in range(MULTIHOST_PROCS)]
+
+    def _stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait(timeout=60)
+            if p.stdin and not p.stdin.closed:
+                p.stdin.close()
+
+    def close(self):
+        self._stop()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def multihost_path(torch, workers, known_reads, smi):
+    """Multi-process sharding: ``MULTIHOST_PROCS`` processes on the one
+    card (``MultihostWorkers``, ``multihost_worker``), each owning
+    ``MULTIHOST_LOCAL`` of the 4 global shards at config #2, take their
+    routed halves of ``sharded_path``'s first unit and of its known
+    traces; the partition property is checked over gloo in each. Each
+    owner's reads of the known traces must equal ``sharded_path``'s
+    4-shard fleet's (``known_reads``), and the owners must partition the
+    known traces. Its ``launches_by_path`` entry sums both workers'."""
+    what = "multihost path"
+    try:
+        workers.go()
+        t = time.perf_counter()
+        outs = workers.wait()
+        drive_s = time.perf_counter() - t
+    finally:
+        workers.close()
+    owners = {}
+    for o in outs:
+        for tid, digest in o["reads"].items():
+            if tid in owners:
+                fail(f"{what}: known trace {tid} read back from two "
+                     f"processes")
+            if known_reads.get(tid) != digest:
+                fail(f"{what}: worker {o['pid']}'s reads of known trace "
+                     f"{tid} differ from the 4-shard fleet's")
+            owners[tid] = o["pid"]
+    if set(owners) != set(known_reads):
+        fail(f"{what}: {len(owners)} of {len(known_reads)} known traces "
+             f"read back from their owners")
+    launches = {k: sum(o["kernel_launches"][k] for o in outs)
+                for k in outs[0]["kernel_launches"]}
+    steps = sum(o["ingest_steps"] for o in outs)
+    result = {
+        "processes": MULTIHOST_PROCS, "local_shards": MULTIHOST_LOCAL,
+        "global_shards": MULTIHOST_PROCS * MULTIHOST_LOCAL,
+        "rendezvous_tries": workers.tries, "drive_s": drive_s,
+        "workers": [{
+            "ready_s": o["mesh_wall"] - workers.spawned,
+            **{k: o[k] for k in (
+                "initialize_s", "unit_s", "fleet_s", "apply_s", "per_apply",
+                "spans_kept", "reads_s", "gather_s", "peak_device_bytes",
+                "write_pos_by_shard", "kept_traces_by_process",
+                "kernel_launches", "ingest_steps")},
+            "apply_spans_per_s": o["spans_kept"][0] / o["apply_s"][0],
+            "known_traces_owned": len(o["reads"])} for o in outs],
+        "known_traces": len(owners), "card": smi,
+        "kernel_launches": launches, "ingest_steps": steps}
+    log(f"multihost path result ({smi}): " + json.dumps(result))
+    return result
 
 
 def _fleet_reads(fleet, tids):
@@ -7410,8 +7764,13 @@ def main() -> int:
     phase("parity", parity_phase, torch, dev, scale, args.rehearse, False)
     phase("paged_parity", parity_phase, torch, dev, scale, args.rehearse,
           True)
-    sharded, units = phase("sharded_path", sharded_path, torch, K, dev,
-                           scale, device, smi)
+    # The multi-process phase's workers start, meet and decode their
+    # unit beside the sharded phase; they touch the card after it.
+    workers = MultihostWorkers(device, args.rehearse)
+    sharded, units, known_reads = phase("sharded_path", sharded_path, torch,
+                                        K, dev, scale, device, smi)
+    multihost = phase("multihost_path", multihost_path, torch, workers,
+                      known_reads, smi)
     sdurable = phase("sharded_durability_path", sharded_durability_path,
                      torch, K, dev, scale, device, smi, units)
     del units
@@ -7444,6 +7803,7 @@ def main() -> int:
                "replication": repl["kernel_launches"],
                "kafka": coll["kafka"]["kernel_launches"],
                "sharded": sharded["kernel_launches"],
+               "multihost": multihost["kernel_launches"],
                "sharded_durability": sdurable["kernel_launches"],
                "sharded_daemon": daemon["sharded"]["kernel_launches"]}
     steps_by_path = {"ring": result["ingest_steps"],
@@ -7462,6 +7822,7 @@ def main() -> int:
                      "replication": repl["ingest_steps"],
                      "kafka": coll["kafka"]["ingest_steps"],
                      "sharded": sharded["ingest_steps"],
+                     "multihost": multihost["ingest_steps"],
                      "sharded_durability": sdurable["ingest_steps"],
                      "sharded_daemon": daemon["sharded"]["ingest_steps"]}
     kernels = [

@@ -1155,11 +1155,11 @@ def test_cuda_sketch_apis_match_cpu(cuda):
 # -- the sharded store on the card --------------------------------------------
 
 
-def _sharded_pair(cuda):
+def _sharded_pair(cuda, cfg=None):
     from zipkin_tpu_torch import obs
     from zipkin_tpu_torch.parallel.shard import ShardedSpanStore
 
-    cfg = _window_store(device="cpu").config
+    cfg = cfg or _window_store(device="cpu").config
     return [ShardedSpanStore(2, cfg, device=d, registry=obs.Registry())
             for d in (cuda, "cpu")]
 
@@ -1306,3 +1306,66 @@ def test_cuda_sharded_fleet_journals_crashes_and_recovers(cuda, tmp_path):
         for c in (rec, card, cpu, wal2):
             if c is not None:
                 c.close()
+
+
+@pytest.mark.cuda
+def test_cuda_multihost_routed_half_matches_cpu(cuda):
+    """A world-of-one gloo group through ``multihost.initialize``, the
+    global view with 2 local shards, then process 0's routed half of a
+    2-process, 4-shard feed into a card ``ShardedSpanStore(2)`` at 2^14
+    and into its CPU twin: every kept span on its local slot, K1, the
+    claim and the write once a shard step, states equal (moments to
+    stated tolerance 2) and the reads equal."""
+    import socket
+
+    import torch.distributed as dist
+
+    from zipkin_tpu_torch.parallel import multihost as mh
+    from zipkin_tpu_torch.testing.crash import state_mismatches
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mh.initialize(f"127.0.0.1:{port}", 1, 0)
+    card = cpu = None
+    try:
+        mesh = mh.global_mesh(local_shards=2)
+        here = f"cuda:{torch.cuda.current_device()}"
+        assert mesh.devices == ((0, 0, here), (0, 1, here))
+        gathered = [None]
+        dist.all_gather_object(gathered, mh.local_shard_ids(mesh))
+        assert gathered == [[0, 1]]
+        two = mh.mesh_layout([(2, here)] * 2, 0)
+        local = mh.local_shard_ids(two)
+        assert local == mh.partitions_for_process(two) == [0, 1]
+        cfg = _window_store(device="cpu").config._replace(
+            capacity=1 << 14, ann_capacity=1 << 15, bann_capacity=1 << 14)
+        card, cpu = _sharded_pair(cuda, cfg)
+        before = dict(K.LAUNCHES)
+        kept_tids = set()
+        for spans in _window_applies(4, 400):
+            groups = mh.route_spans(spans, 4, keep=local)
+            kept = [s for sid in sorted(groups) for s in groups[sid]]
+            assert all(card._shard_of(s.trace_id) == sid
+                       for sid, g in groups.items() for s in g)
+            card.apply(kept)
+            cpu.apply(kept)
+            kept_tids |= {s.trace_id for s in kept}
+        torch.cuda.synchronize()
+        steps = sum(b["batches"] for b in card.shard_counters())
+        assert steps == 2 * 4
+        for k in ("flat_histogram", "arena_claim", "arena_write"):
+            assert K.LAUNCHES[k] - before[k] == steps, k
+        for a, b in zip(cpu.states, card.states):
+            assert not state_mismatches(a, b, moments_tolerance=True)
+        tids = sorted(kept_tids)[:60]
+        assert card.get_spans_by_trace_ids(tids) == \
+            cpu.get_spans_by_trace_ids(tids) != []
+        assert card.get_traces_duration(tids) == \
+            cpu.get_traces_duration(tids)
+        assert card.shard_counters() == cpu.shard_counters()
+    finally:
+        for c in (card, cpu):
+            if c is not None:
+                c.close()
+        dist.destroy_process_group()

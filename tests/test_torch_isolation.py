@@ -101,7 +101,11 @@ def test_package_imports_without_jax():
             "and quantile.LogHistogram and moments.variance and "
             "topk.Counters; "
             "from zipkin_tpu_torch.testing.kafka_fake import "
-            "FakeKafkaBroker, MinimalKafkaConsumer, MinimalKafkaProducer")
+            "FakeKafkaBroker, MinimalKafkaConsumer, MinimalKafkaProducer; "
+            "from zipkin_tpu_torch.parallel.multihost import initialize, "
+            "global_mesh, local_shard_ids, partitions_for_process, "
+            "route_spans; "
+            "from chip_smoke import multihost_worker")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
