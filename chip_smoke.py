@@ -4,8 +4,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``zipkin_tpu_torch/csrc`` (one
-nvcc per source, started together), then
+It builds the four CUDA kernel sources from ``zipkin_tpu_torch/csrc``
+(one nvcc per source, started together), then
 
 1. drives the ring store's main path at full width: a ``TorchSpanStore``
    at the 1k-service / 2^22-span-ring configuration with the kernels on
@@ -22,8 +22,14 @@ nvcc per source, started together), then
    equal the step's own sketch deltas bitwise, and each API, ``top_k``
    on a 1,000-service ``Counters`` with forced ties and
    ``topk_from_cms`` must give the card's and the CPU's results
-   bitwise equal; it times ``kernels.cms_update`` (K1's count-min
-   call) at that shape;
+   bitwise equal; the APIs' launches, counted from 0, must be one
+   ``cms_update`` and two flat histograms (the ``sketch_api`` entry of
+   ``launches_by_path``); ``kernels.cms_update`` must equal its plain
+   version on the API's buckets and on edge inputs made from them
+   (negative buckets, buckets >= W in a middle and the last row,
+   wrapping flat indices, one row, no key, int32 and wide int64
+   buckets, one hot cell; without and with weights), and it is timed
+   at that shape;
 2. drives the paged layout the same way (128-row pages, 32,768 pages):
    >= 37 launches so the page pool runs out and pages are reclaimed,
    then the known traces plus 32 big traces (exclusive, multi-page
@@ -36,8 +42,11 @@ nvcc per source, started together), then
    arena claim,
    write and the two together also on an in-batch bucket overflow, a
    power-of-two bucket count, no valid row and one bucket spanning
-   several of the claim's blocks; the page gather also on hole pages.
-   It times call, kernel alone, twin and a one-call PyTorch yardstick;
+   several of the claim's blocks; the page gather also on hole pages,
+   8-row pages, int32-only and int64-only column sets and misaligned
+   column views. It times call, kernel alone, twin and a one-call
+   PyTorch yardstick, and K3's table check beside a key of every
+   column's attributes;
 4. drives the daemon's default store (the same configuration with the
    windowed arena on, 60 s x 64 buckets): 34 launches two buckets apart
    (the slot ring laps), then one late launch whose rows lose the epoch
@@ -551,25 +560,31 @@ def time_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_ms(torch, fn, kernel, reps: int = 10):
+def device_ms(torch, fn, kernel, reps: int = 10, l2: str = "dirty"):
     """Mean device milliseconds, a call, of the device activities whose
     name holds ``kernel`` (a string, or a tuple of strings: any of them)
     in ``fn`` calls (torch.profiler's CUDA activity): no host launch
     gaps, and a 256 MB fill before each call so each starts with the
     50 MB L2 cold, as a read on the store finds it. The fill writes
     ones, so it is a kernel and never a memset. "not measured" off the
-    card; see ``device_profile`` for the calls it counts."""
-    return device_profile(torch, fn, kernel, reps)[0]
+    card; see ``device_profile`` for the calls it counts and for the
+    other L2 states ``l2`` names."""
+    return device_profile(torch, fn, kernel, reps, l2=l2)[0]
 
 
-def device_profile(torch, fn, kernel, reps: int = 10, warm: int = 3):
+def device_profile(torch, fn, kernel, reps: int = 10, warm: int = 3,
+                   l2: str = "dirty"):
     """``device_ms`` and what the profile held. The profiler does not
     report the first few activities of a capture (run 1 of PR 11: the
     first two to five of 20), so ``warm`` calls run first inside it, and
     the mean is over the last ``reps`` calls whose fill it reported:
     their matched activities (those that start after the first of those
     fills) over their count. ``info``: the calls counted, the activities
-    matched in them, and by name those the filter matched neither."""
+    matched in them, and by name those the filter matched neither.
+    ``l2`` is the cache a call finds: ``dirty`` (the 256 MB fill: 50 MB
+    of written lines, each evicted with a write-back), ``clean`` (a
+    256 MB read: cold but clean lines) or ``warm`` (what the last call
+    left); the last two mark each call with a one-element fill."""
     if not torch.cuda.is_available():
         return "not measured", {}
     from torch.autograd import DeviceType
@@ -577,11 +592,17 @@ def device_profile(torch, fn, kernel, reps: int = 10, warm: int = 3):
 
     names = (kernel,) if isinstance(kernel, str) else kernel
     flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    mark = torch.empty(1, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(warm + reps):
-            flush.fill_(1)
+            if l2 == "dirty":
+                flush.fill_(1)
+            else:
+                if l2 == "clean":
+                    flush.sum()
+                mark.fill_(1)
             fn()
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events()
@@ -1092,6 +1113,19 @@ class FirstStepSketches:
         self.dev.ingest_steps = self._orig
 
 
+def host_us(torch, fn, device, reps: int = 50) -> float:
+    """Host microseconds a call of ``fn``, back to back with no sync
+    between calls (what a caller's thread spends; the device runs
+    behind it)."""
+    sync(torch, device)
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t) * 1e6 / reps
+    sync(torch, device)
+    return host
+
+
 def sketch_api_check(torch, K, cfg, probe, device):
     """The standalone sketch APIs on the columns the ring path's first
     launch consumed: ``cms.update``, ``hll.update`` and
@@ -1100,9 +1134,9 @@ def sketch_api_check(torch, K, cfg, probe, device):
     HLL: max(before, api) == after); then each API again on the CPU,
     with ``top_k`` on a 1,000-service ``Counters`` with forced ties and
     ``topk_from_cms``, equal to the card's bitwise, the tie order that
-    of a numpy lexsort. It times ``kernels.cms_update`` at this shape
-    against its plain version, one ``index_add_`` and its bound, and
-    counts the K1 launches the API calls made."""
+    of a numpy lexsort. The APIs' kernel launches are counted from 0
+    (one ``cms_update``, two K1); then ``cms_update_phase`` holds and
+    times ``kernels.cms_update`` at this shape."""
     from zipkin_tpu_torch.ops import cms, hll, quantile as Q, topk
     from zipkin_tpu_torch.ops.hashing import dev_split64
 
@@ -1116,7 +1150,6 @@ def sketch_api_check(torch, K, cfg, probe, device):
             "trace_id", "service_id", "duration"))
         hi, lo = dev_split64(tid)
         ok = (sid >= 0) & (sid < S) & (dur >= 0)
-        before = K.LAUNCHES["flat_histogram"]
         sk = cms.update(cms.init(cfg.cms_depth, cfg.cms_width, device=dev),
                         hi, lo)
         reg = hll.update(hll.init(cfg.hll_p, device=dev), hi, lo)
@@ -1132,9 +1165,11 @@ def sketch_api_check(torch, K, cfg, probe, device):
         out["cms_top_values"], out["cms_top_positions"] = \
             topk.topk_from_cms(sk, cand_hi, cand_lo, 1000)
         sync(torch, torch.device(dev) if isinstance(dev, str) else dev)
-        return out, K.LAUNCHES["flat_histogram"] - before
+        return out
 
-    card, k1 = apis(device)
+    K.reset_launches()
+    card = apis(device)
+    launches = dict(K.LAUNCHES)
     b, a = probe.before, probe.after
     if not torch.equal(card["cms"], a["cms_trace_spans"]
                        - b["cms_trace_spans"]):
@@ -1145,10 +1180,12 @@ def sketch_api_check(torch, K, cfg, probe, device):
     if not torch.equal(torch.maximum(b["hll_traces"], card["hll"]),
                        a["hll_traces"]):
         fail("ring path: hll.update differs from the step's registers")
-    if device.type == "cuda" and k1 != 3:
-        fail(f"ring path: the int32 sketch updates launched K1 {k1} "
-             f"times, not 3 (cms, histogram bank, counters)")
-    cpu, _ = apis("cpu")
+    if device.type == "cuda" and (launches["cms_update"] != 1
+                                  or launches["flat_histogram"] != 2):
+        fail(f"ring path: the int32 sketch updates launched {launches}, "
+             f"not one cms_update (cms) and two flat_histogram "
+             f"(histogram bank, counters)")
+    cpu = apis("cpu")
     for k, v in cpu.items():
         if not torch.equal(v, card[k].cpu()):
             fail(f"ring path: the sketch API's {k} differs card vs CPU")
@@ -1157,42 +1194,149 @@ def sketch_api_check(torch, K, cfg, probe, device):
     if not np.array_equal(cpu["top_k_ids"].numpy(), order):
         fail("ring path: top_k does not order ties by id")
     api_s = time.perf_counter() - t0
-
-    # kernels.cms_update at this shape (4 x 114,688 rows into 4 x 2^16).
-    tid = probe.cols["trace_id"].to(device)
-    hi, lo = dev_split64(tid)
-    rows = cms.indices(cfg.cms_depth, cfg.cms_width, hi, lo).to(
-        torch.int32).contiguous()
-    zeros = torch.zeros((cfg.cms_depth, cfg.cms_width), dtype=torch.int32,
-                        device=device)
-    want = K.histogram_update_plain(zeros.clone(),
-                                    K.cms_flat_index(rows, cfg.cms_width))
-    got = K.cms_update(zeros.clone(), rows)
-    err = _disagree(got, want)
-    if err:
-        fail(f"kernels.cms_update disagrees with its plain version "
-             f"(max err {err})")
-    scratch = zeros.clone()
-    flat = K.cms_flat_index(rows, cfg.cms_width).long()
-    ones = torch.ones_like(flat, dtype=torch.int32)
-    touched = int(torch.unique(flat).numel())
-    bound_ms = (rows.numel() * 4 + touched * 8) / H100_BYTES_PER_S * 1e3
-    call = lambda: K.cms_update(scratch, rows)  # noqa: E731
-    out = {
-        "rows": rows.numel(), "cells": scratch.numel(), "touched": touched,
-        "ms": time_ms(torch, call),
-        "device_ms": checked_device_ms(torch, call, "hist_multi", bound_ms,
-                                       1, "kernels.cms_update")[0],
-        "plain_ms": time_ms(torch, lambda: K.histogram_update_plain(
-            scratch, K.cms_flat_index(rows, cfg.cms_width))),
-        "library_ms": time_ms(torch, lambda: scratch.view(-1).index_add_(
-            0, flat, ones)),
-        "library": "one index_add_ over the flat index",
-        "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": err,
-        "api_k1_launches": k1, "api_check_s": api_s,
-        "keys": tid.numel(),
-    }
+    out = cms_update_phase(torch, K, cfg, probe.cols["trace_id"].to(device),
+                           device)
+    out.update(launches=launches, api_check_s=api_s)
     log("sketch APIs vs the ring step: " + json.dumps(out))
+    return out
+
+
+def cms_edge_cases(torch, rows, width: int, gen):
+    """Edge inputs made from the sketch API's int64 [D, N] buckets:
+    ``(label, buckets)``. Masked and negative buckets, buckets >= W in a
+    middle row (they land in the next rows) and in the last row (past
+    D x W: dropped), flat indices that wrap past 2^31 (dropped), one
+    row, no key, the int32 cast, int64 buckets outside int32 (cut to
+    their low 32 bits), every key on one cell."""
+    def edit(fn):
+        r = rows.clone()
+        fn(r)
+        return r
+
+    def negative(r):
+        r[:, ::3] = -1
+        r[1, 1::7] = -2**31
+        r[2, 2::5] = -width
+
+    def past_middle(r):
+        r[1, ::5] += width + torch.randint(0, width, r[1, ::5].shape,
+                                           generator=gen, device=r.device)
+
+    def past_last(r):
+        r[-1, ::5] += width + torch.randint(0, 2 * width, r[-1, ::5].shape,
+                                            generator=gen, device=r.device)
+
+    def wrap(r):
+        r[2, ::7] = 2**31 - 1 - r[2, ::7]
+
+    def wide(r):
+        r[:, ::3] += 2**32
+        r[:, 1::3] -= 2**32
+        r[:, 2::11] += 2**31
+
+    return [("masked and negative buckets", edit(negative)),
+            ("buckets >= W in row 1", edit(past_middle)),
+            ("buckets >= W in the last row", edit(past_last)),
+            ("flat index wraps past 2^31", edit(wrap)),
+            ("D = 1", rows[:1].contiguous()),
+            ("N = 0", rows[:, :0].contiguous()),
+            ("int32 buckets", rows.to(torch.int32)),
+            ("int64 buckets outside int32", edit(wide)),
+            ("every key on one cell", torch.full_like(rows, 3))]
+
+
+def cms_update_phase(torch, K, cfg, tid, device):
+    """``kernels.cms_update`` on the buckets ``cms.update`` hands it for
+    the ring path's first launch (int64 [4, 114,688] into 4 x 2^16) and
+    on ``cms_edge_cases``, each without and with int32 weights, bitwise
+    against its plain version; then call ms, host us, device ms, plain
+    ms and the bound, on these int64 buckets and on their int32 cast,
+    and two one-call yardsticks from inputs made ahead: ``scatter_add_``
+    over the [D, N] buckets (the same function where every bucket lies
+    in [0, W), as ``cms.indices`` makes them) and ``index_add_`` over a
+    flat index."""
+    from zipkin_tpu_torch.ops import cms
+    from zipkin_tpu_torch.ops.hashing import dev_split64
+
+    D, W = cfg.cms_depth, cfg.cms_width
+    hi, lo = dev_split64(tid)
+    rows = cms.indices(D, W, hi, lo)
+    n = rows.shape[1]
+    gen = torch.Generator(device=device).manual_seed(20)
+    wts = torch.randint(1, 4, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    zeros = torch.zeros((D, W), dtype=torch.int32, device=device)
+    cases = [("main path", rows)] + cms_edge_cases(torch, rows, W, gen)
+    for label, r in cases:
+        for w in (None, wts[:r.shape[1]]):
+            counts = zeros[:r.shape[0]]
+            want = K.cms_update_plain(counts.clone(), r, w)
+            err = _disagree(K.cms_update(counts.clone(), r, w), want)
+            if err:
+                fail(f"kernels.cms_update ({label}, weights "
+                     f"{'given' if w is not None else 'none'}) disagrees "
+                     f"with its plain version (max err {err})")
+    scratch = zeros.clone()
+    r32 = rows.to(torch.int32)
+    flat32 = K.cms_flat_index(rows, W)
+    flat = flat32.long()
+    ones_flat = torch.ones_like(flat, dtype=torch.int32)
+    ones = torch.ones(rows.shape, dtype=torch.int32, device=device)
+    touched = int(torch.unique(flat).numel())
+
+    def timed(r):
+        call = lambda: K.cms_update(scratch, r)  # noqa: E731
+        bound_ms = ((r.numel() * r.element_size() + touched * 8)
+                    / H100_BYTES_PER_S * 1e3)
+        return {"host_us": host_us(torch, call, device),
+                "device_ms": checked_device_ms(
+                    torch, call, "cms_update", bound_ms, 1,
+                    f"kernels.cms_update ({r.dtype} buckets)")[0],
+                "plain_ms": time_ms(torch, lambda: K.cms_update_plain(
+                    scratch, r)),
+                "bound_ms": bound_ms}
+
+    # The call, its int32-bucket form and the same-function library call
+    # in turns: four rounds of 50 calls each.
+    calls = {"ms": lambda: K.cms_update(scratch, rows),
+             "int32_ms": lambda: K.cms_update(scratch, r32),
+             "library_ms": lambda: scratch.scatter_add_(1, rows, ones)}
+    turns = {k: [] for k in calls}
+    for r in range(4):
+        for k in (list(calls) if r % 2 == 0 else reversed(list(calls))):
+            turns[k].append(time_ms(torch, calls[k], reps=50))
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    out = {
+        "rows": rows.numel(), "keys": n, "cells": scratch.numel(),
+        "touched": touched, "bucket_dtype": "int64", "ms": mean["ms"],
+        "ms_turns": turns["ms"],
+        # The mean over 10 calls, the yardstick of the flat-index route's
+        # call time.
+        "ms_over_10": time_ms(torch, calls["ms"], reps=10), **timed(rows),
+        **{f"device_ms_{l2}_l2": device_ms(
+            torch, calls["ms"], "cms_update", reps=20, l2=l2)
+           for l2 in ("clean", "warm")},
+        # The route before this kernel: K1 over a ready int32 flat index
+        # (the index's own ops not counted).
+        "k1_over_flat_index_device_ms": device_ms(
+            torch, lambda: K.histogram_update(scratch, flat32),
+            "hist_multi", reps=20),
+        "library_host_us": host_us(torch, calls["library_ms"], device),
+        "library_ms": mean["library_ms"],
+        "library_ms_turns": turns["library_ms"],
+        "library": "scatter_add_(1, buckets, ones) over the ready int64 "
+                   "[D, N] buckets: the same function here, where every "
+                   "bucket lies in [0, W) as cms.indices makes them (a "
+                   "bucket >= W, which the kernel adds to the next row, "
+                   "is out of range for scatter_add_)",
+        "library_flat_ms": time_ms(torch, lambda: scratch.view(
+            -1).index_add_(0, flat, ones_flat)),
+        "library_flat": "index_add_ over a ready flat index",
+        "int32_buckets": {"ms": mean["int32_ms"],
+                          "ms_turns": turns["int32_ms"], **timed(r32)},
+        "bound_by": "bytes", "max_abs_err": 0,
+        "cases": [c for c, _ in cases], "weights": ["none", "int32 [N]"],
+    }
     return out
 
 
@@ -1296,7 +1440,8 @@ def paged_path(torch, K, dev, scale, device):
     log(f"paged path: {written} spans streamed in {len(step_s)} launches, "
         f"{stream_s:.3f} s; {counters['page_reclaims_total']:.0f} page "
         f"reclaims; launches {launches}")
-    check_launches(launches, K.KERNELS, device, "paged",
+    check_launches(launches, ("flat_histogram", "arena_claim", "arena_write",
+                              "paged_page_gather"), device, "paged",
                    store.counter_block()["batches"])
     if counters["page_reclaims_total"] <= 0 or reclaims_stream <= 0:
         fail("the paged stream reclaimed no page")
@@ -2217,6 +2362,22 @@ def kernel_sequence(events):
     return seq
 
 
+def kernel_count(events, part: str) -> int:
+    """The kernel events of a Chrome trace whose name holds ``part``."""
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and part in e["name"])
+
+
+def profile_launches(events, seq):
+    """A profile's launches by kernel: K1, the claim and the write from
+    its ``kernel_sequence`` ``seq``, ``cms_update`` and K3 from their
+    own kernels' events."""
+    return {"flat_histogram": seq.count("H"),
+            "cms_update": kernel_count(events, "cms_update_rows"),
+            "arena_claim": seq.count("C"), "arena_write": seq.count("W"),
+            "paged_page_gather": kernel_count(events, "page_gather")}
+
+
 def steps_in(seq, what):
     """Complete claim-write-histogram steps in a kernel sequence; fails
     unless, past a partial step at each edge of the capture, it is those
@@ -2419,9 +2580,7 @@ def sharded_daemon(torch, scale, device, traffic, env, live, snapshot):
         if on_card and steps < 1:
             fail(f"{what}: the profile holds no whole shard step "
                  f"({len(events)} events)")
-        launches = {"flat_histogram": seq.count("H"),
-                    "arena_claim": seq.count("C"),
-                    "arena_write": seq.count("W"), "paged_page_gather": 0}
+        launches = profile_launches(events, seq)
         t = time.perf_counter()
         n_known = known_reads_equal(base, oracle_api, known,
                                     f"{what} boot A")
@@ -2616,9 +2775,7 @@ def daemon_path(torch, K, scale, device, boot, traffic, snapshot):
         if on_card and steps < 1:
             fail(f"daemon path: the profile holds no whole ingest step "
                  f"({len(events)} events)")
-        launches = {"flat_histogram": seq.count("H"),
-                    "arena_claim": seq.count("C"),
-                    "arena_write": seq.count("W"), "paged_page_gather": 0}
+        launches = profile_launches(events, seq)
         status, mj = http_json(base, "/metrics", {"format": "json"})
         if status != 200 or mj.get("store.scatter_path_pallas") != 1:
             fail(f"daemon path: /metrics?format=json shows "
@@ -6259,15 +6416,6 @@ def hist_phase(torch, K, rec, n_sites: int = 7, alone=None):
             ok = (i64 >= 0) & (i64 < flat.shape[0])
             flat.index_put_((i64[ok],), ones[ok], accumulate=True)
 
-    def host_us(fn, reps=50):
-        sync(torch, scratch[0][0].device)
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host = (time.perf_counter() - t) * 1e6 / reps
-        sync(torch, scratch[0][0].device)
-        return host
-
     def bound(rows, cells):
         # 4 B of index a row (no weights), each touched cell read and
         # written once
@@ -6282,7 +6430,7 @@ def hist_phase(torch, K, rec, n_sites: int = 7, alone=None):
     row = {"sites": len(scratch), "rows": sum(rows),
            "cells": sum(c.numel() for c, _, _ in scratch),
            "touched": sum(touched), "ms": time_ms(torch, fused),
-           "host_us": host_us(fused),
+           "host_us": host_us(torch, fused, scratch[0][0].device),
            "device_ms": dev_ms, "device_profile": profiled,
            "plain_ms": time_ms(torch, lambda: K.histogram_update_many_plain(
                scratch)),
@@ -6349,31 +6497,12 @@ def hist_variants(torch, K, rec):
     the first step's seven sites bitwise against the twin, and reads its
     cold device ms."""
     import ctypes
-    import re
 
-    src = (K.CSRC / "flat_histogram.cu").read_text()
-    out = K.BUILD_DIR / "hist_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for label, consts in {"as built": {}, **HIST_VARIANTS}.items():
-        text = src
-        for name, value in consts.items():
-            text, n = re.subn(rf"(constexpr [\w ]+ {name} = )[^;]+;",
-                              rf"\g<1>{value};", text)
-            if n != 1:
-                fail(f"hist variant {label}: no constant {name}")
-        cu = out / f"v{len(procs)}.cu"
-        cu.write_text(text)
-        procs[label] = (cu.with_suffix(".so"), subprocess.Popen(
-            K.nvcc_command(cu, cu.with_suffix(".so")),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = build_variants(K, "flat_histogram", HIST_VARIANTS, "hist")
     want = [(c.clone(), i, w) for c, i, w in rec.hist]
     K.histogram_update_many_plain(want)
     rows = {}
-    for label, (so, proc) in procs.items():
-        build_log, _ = proc.communicate()
-        if proc.returncode:
-            fail(f"hist variant {label} did not build:\n{build_log}")
+    for label, so in libs.items():
         fn = ctypes.CDLL(str(so)).zt_flat_histogram_multi
         fn.argtypes = K._ARGTYPES["zt_flat_histogram_multi"]
         got = [(c.clone(), i, w) for c, i, w in rec.hist]
@@ -6389,6 +6518,86 @@ def hist_variants(torch, K, rec):
         rows[label] = device_ms(torch, lambda: call(got), "hist_multi",
                                 reps=20)
         log(f"flat_histogram variant {label}: device_ms {rows[label]}")
+    return rows
+
+
+# ``--gather-variants``: copies of csrc/paged_page_gather.cu with one
+# tuning constant changed each.
+GATHER_VARIANTS = {
+    "one 16-byte load in flight a lane": {"kUnroll": "1"},
+    "128 threads a block": {"kThreads": "128"},
+    "512 threads a block": {"kThreads": "512"},
+}
+
+
+def build_variants(K, source: str, variants, what: str):
+    """Copies of ``csrc/<source>.cu``, the source as it is first, with
+    one design constant changed each: ``{label: library path}``, one
+    nvcc each, all started together."""
+    import re
+
+    src = (K.CSRC / f"{source}.cu").read_text()
+    out = K.BUILD_DIR / f"{source}_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for label, consts in {"as built": {}, **variants}.items():
+        text = src
+        for name, value in consts.items():
+            text, n = re.subn(rf"(constexpr [\w ]+ {name} = )[^;]+;",
+                              rf"\g<1>{value};", text)
+            if n != 1:
+                fail(f"{what} variant {label}: no constant {name}")
+        cu = out / f"v{len(procs)}.cu"
+        cu.write_text(text)
+        procs[label] = (cu.with_suffix(".so"), subprocess.Popen(
+            K.nvcc_command(cu, cu.with_suffix(".so")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for label, (so, proc) in procs.items():
+        build_log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"{what} variant {label} did not build:\n{build_log}")
+        libs[label] = so
+    return libs
+
+
+def gather_variants(torch, K, rec):
+    """The design check of K3: each of ``GATHER_VARIANTS`` (and the
+    source as it is) on the paged reads' largest page list, held bitwise
+    against the twin, with its device ms under each L2 state of
+    ``device_profile``, in two rounds (as built, the variants, the
+    variants again in reverse, as built)."""
+    import ctypes
+
+    cols, pages, R = rec.gather
+    dev = pages.device
+    ptrs, sizes, cap, _, _ = K._gather_table(cols, R, dev)
+    want = K.paged_page_gather_plain(cols, pages, R)
+    out = torch.empty_like(want)
+    stream = K._stream(dev)
+    rows = {}
+    libs = build_variants(K, "paged_page_gather", GATHER_VARIANTS,
+                          "gather")
+    order = list(libs) + list(reversed(libs))
+    for label in order:
+        fn = ctypes.CDLL(str(libs[label])).zt_paged_page_gather
+        fn.argtypes = K._ARGTYPES["zt_paged_page_gather"]
+
+        def call():
+            if fn(ptrs, sizes, len(cols), pages.data_ptr(), out.data_ptr(),
+                  pages.numel(), R, cap // R, stream):
+                fail(f"gather variant {label} did not launch")
+
+        out.fill_(-1)
+        call()
+        if not torch.equal(out, want):
+            fail(f"gather variant {label} disagrees")
+        row = rows.setdefault(label, {})
+        for l2 in ("dirty", "clean", "warm"):
+            row.setdefault(l2, []).append(device_ms(
+                torch, call, "page_gather", reps=20, l2=l2))
+    for label, row in rows.items():
+        log(f"paged_page_gather variant {label}: device_ms {row}")
     return rows
 
 
@@ -6573,42 +6782,108 @@ def arena_phase(torch, K, rec):
     return row
 
 
+def gather_edge_cases(torch, device):
+    """Column sets and page lists for K3's unusual shapes, made on
+    ``device`` from a seed: ``(label, cols, pages, page_rows)``. 8-row
+    pages, int32 columns only, int64 columns only, and columns that are
+    views 4 to 24 bytes past a 16-byte boundary (the kernel's scalar
+    path) beside aligned ones; each list has holes at both ends, a
+    negative page and one past the last page."""
+    gen = torch.Generator(device=device).manual_seed(33)
+    mixed = "lllillllllllil"
+    out = []
+    for label, R, kinds, misaligned in (
+            ("8-row pages", 8, mixed, False),
+            ("int32 columns only", 128, "i" * 14, False),
+            ("int64 columns only", 128, "l" * 14, False),
+            ("misaligned column views", 128, mixed, True)):
+        n_pages = 64
+        cap = n_pages * R
+        cols = []
+        for i, kind in enumerate(kinds):
+            base = torch.randint(-2**62, 2**62, (cap + 4,), generator=gen,
+                                 dtype=torch.int64, device=device)
+            if kind == "i":
+                base = base.to(torch.int32)
+            off = (1 + i % 3) if misaligned and i % 2 else 0
+            cols.append(base[off:off + cap])
+        pages = torch.randint(0, n_pages, (40,), generator=gen,
+                              dtype=torch.int32, device=device)
+        pages[0] = pages[-1] = -1
+        pages[1], pages[20] = n_pages, -5
+        out.append((label, cols, pages, R))
+    return out
+
+
 def gather_phase(torch, K, rec):
-    """K3 against its twin on the paged reads' largest page list and on
-    that list with hole pages (front, middle, past the last page, end);
-    times the call (column table cached, and rebuilt every call), the
-    kernel alone, the twin and ``torch.index_select`` on a pre-stacked
-    [14, capacity] int64 matrix, without and with the stack of the 14
-    columns timed."""
+    """K3 against its twin, bitwise, on the paged reads' largest page
+    list, on that list with hole pages (front, middle, past the last
+    page, end) and on ``gather_edge_cases``; times the call (column
+    table cached, and rebuilt every call), its host us, the table check
+    alone beside a cache key of every column's data_ptr, dtype, size and
+    stride (the check it replaced), the kernel alone, the twin
+    and ``torch.index_select`` on a pre-stacked [14, capacity] int64
+    matrix, without and with the stack of the 14 columns timed."""
+    import operator
+
     if rec.gather is None:
         fail("no paged_page_gather call was recorded")
     cols, pages, R = rec.gather
+    dev = pages.device
     n_pages = cols[0].numel() // R
     mid = pages.numel() // 2
-    hole = torch.tensor([-1], dtype=torch.int32, device=pages.device)
-    past = torch.tensor([n_pages], dtype=torch.int32, device=pages.device)
+    hole = torch.tensor([-1], dtype=torch.int32, device=dev)
+    past = torch.tensor([n_pages], dtype=torch.int32, device=dev)
     holed = torch.cat([hole, pages[:mid], hole, past, pages[mid:], hole])
-    for label, pg in (("main-path read", pages), ("hole pages", holed)):
-        want = K.paged_page_gather_plain(cols, pg, R)
-        got = K.paged_page_gather(cols, pg, R)
+    cases = [("main-path read", cols, pages, R),
+             ("hole pages", cols, holed, R)] + gather_edge_cases(torch, dev)
+    for label, cc, pg, r in cases:
+        want = K.paged_page_gather_plain(cc, pg, r)
+        got = K.paged_page_gather(cc, pg, r)
         if not torch.equal(got, want):
             err = int((got - want).abs().max())
             fail(f"paged_page_gather ({label}) disagrees (max err {err})")
-    ms = time_ms(torch, lambda: K.paged_page_gather(cols, pages, R),
-                 reps=20)
+    labels = [c[0] for c in cases]
+    del cases, want, got
+    call = lambda: K.paged_page_gather(cols, pages, R)  # noqa: E731
+    ms = time_ms(torch, call, reps=200)
+    # The mean over 20 calls, the yardstick of the attribute-keyed
+    # table's call time.
+    ms_over_20 = time_ms(torch, call, reps=20)
 
     def uncached():
         K._GATHER_TABLES.clear()
         return K.paged_page_gather(cols, pages, R)
 
-    uncached_ms = time_ms(torch, uncached, reps=20)
+    uncached_ms = time_ms(torch, uncached, reps=100)
+    dtype_of = operator.attrgetter("dtype")
+    attr_tables = {}
+
+    def attr_check():
+        key = (R, *map(torch.Tensor.data_ptr, cols), *map(dtype_of, cols),
+               *map(torch.Tensor.size, cols), *map(torch.Tensor.stride, cols))
+        return attr_tables.get(key)
+
+    check_us = host_us(torch, lambda: K._gather_table(cols, R, dev), dev,
+                       reps=5000)
+    attr_check_us = host_us(torch, attr_check, dev, reps=5000)
     plain = time_ms(torch, lambda: K.paged_page_gather_plain(cols, pages,
                                                              R), reps=20)
-    dev_ms = device_ms(torch, lambda: K.paged_page_gather(cols, pages, R),
-                       "page_gather", reps=20)
+    k = pages.numel()
+    k_real = int(((pages >= 0) & (pages < n_pages)).sum())
+    read_b = k_real * R * sum(c.element_size() for c in cols)
+    write_b = k * R * len(cols) * 8
+    bound_ms = (read_b + write_b) / H100_BYTES_PER_S * 1e3
+    # Held to its launches only, not to the bound: the output's 7 MB
+    # may land in the 50 MB L2 before the kernel ends, and the bound
+    # counts them at the memory's rate.
+    dev_ms, profiled = checked_device_ms(torch, call, "page_gather", 0.0, 1,
+                                         "paged_page_gather", reps=20)
+    l2_ms = {l2: device_ms(torch, call, "page_gather", reps=20, l2=l2)
+             for l2 in ("clean", "warm")}
     mat = torch.stack([c.to(torch.int64) for c in cols])
     slots = (torch.clamp(pages.long(), 0, n_pages - 1)[:, None] * R
-             + torch.arange(R, device=pages.device)[None, :]).reshape(-1)
+             + torch.arange(R, device=dev)[None, :]).reshape(-1)
     lib = time_ms(torch, lambda: torch.index_select(mat, 1, slots),
                   reps=20)
     del mat
@@ -6616,17 +6891,18 @@ def gather_phase(torch, K, rec):
     # pays the stack of the 14 columns too.
     lib_stacked = time_ms(torch, lambda: torch.index_select(
         torch.stack([c.to(torch.int64) for c in cols]), 1, slots), reps=20)
-    k = pages.numel()
-    k_real = int(((pages >= 0) & (pages < n_pages)).sum())
-    read_b = k_real * R * sum(c.element_size() for c in cols)
-    write_b = k * R * len(cols) * 8
     row = {"pages": k, "live_pages": k_real, "page_rows": R,
            "columns": len(cols), "capacity": cols[0].numel(),
-           "cases": ["main-path read", "hole pages"], "ms": ms,
-           "uncached_ms": uncached_ms, "device_ms": dev_ms,
+           "cases": labels, "ms": ms, "ms_over_20": ms_over_20,
+           "host_us": host_us(torch, call, dev, reps=200),
+           "uncached_ms": uncached_ms, "table_check_us": check_us,
+           "attribute_key_check_us": attr_check_us, "device_ms": dev_ms,
+           "device_profile": profiled,
+           "device_ms_clean_l2": l2_ms["clean"],
+           "device_ms_warm_l2": l2_ms["warm"],
            "plain_ms": plain, "library_ms": lib,
            "library_with_stack_ms": lib_stacked,
-           "bound_ms": (read_b + write_b) / H100_BYTES_PER_S * 1e3,
+           "bound_ms": bound_ms, "bound_by": "bytes",
            "bytes": read_b + write_b, "max_abs_err": 0}
     log("paged_page_gather: " + json.dumps(row))
     return row
@@ -7682,6 +7958,9 @@ def main() -> int:
     ap.add_argument("--hist-variants", action="store_true",
                     help="also build and time design variants of the flat "
                          "histogram kernel on the first step's sites")
+    ap.add_argument("--gather-variants", action="store_true",
+                    help="also build and time design variants of the page "
+                         "gather kernel on the paged reads' largest call")
     ap.add_argument("--profile", type=int, default=3, metavar="N",
                     help="profile N more launches of the ring stream "
                          "(torch.profiler): kernel time and idle share; "
@@ -7735,6 +8014,8 @@ def main() -> int:
     prec, presult = phase("paged_path", paged_path, torch, K, dev, scale,
                           device)
     gather = phase("paged_page_gather", gather_phase, torch, K, prec)
+    if args.gather_variants and not args.rehearse:
+        phase("paged_page_gather_variants", gather_variants, torch, K, prec)
     del prec
     wrec, wresult = phase("window_path", window_path, torch, K, dev, scale,
                           device, result)
@@ -7785,7 +8066,9 @@ def main() -> int:
                    scale, device)
     phase("crash_kill_points", crash_kill_points, torch, device)
     big = max(hist_rows, key=lambda r: r["cells"])
+    cms_row = result["sketch_api"]
     by_path = {"ring": result["kernel_launches"],
+               "sketch_api": result["sketch_api"]["launches"],
                "paged": presult["kernel_launches"],
                "window": wresult["kernel_launches"],
                "pipeline": piped["kernel_launches"],
@@ -7806,7 +8089,7 @@ def main() -> int:
                "multihost": multihost["kernel_launches"],
                "sharded_durability": sdurable["kernel_launches"],
                "sharded_daemon": daemon["sharded"]["kernel_launches"]}
-    steps_by_path = {"ring": result["ingest_steps"],
+    steps_by_path = {"ring": result["ingest_steps"], "sketch_api": 0,
                      "paged": presult["ingest_steps"],
                      "window": wresult["ingest_steps"],
                      "pipeline": piped["ingest_steps"],
@@ -7833,8 +8116,7 @@ def main() -> int:
          "launches_by_path": {p: v["flat_histogram"]
                               for p, v in by_path.items()},
          "steps_by_path": steps_by_path,
-         "max_abs_err": max([hist["max_abs_err"], hist8["max_abs_err"],
-                             result["sketch_api"]["max_abs_err"]]
+         "max_abs_err": max([hist["max_abs_err"], hist8["max_abs_err"]]
                             + [r["max_abs_err"]
                                for r in hist_rows + hist8_rows]),
          **{k: hist[k] for k in (
@@ -7850,26 +8132,33 @@ def main() -> int:
                  "device_ms", "plain_ms", "bound_ms", "library_ms")},
              "eighth_site": {k: hist8_rows[0][k] for k in (
                  "cells", "rows", "touched", "ms", "device_ms", "plain_ms",
-                 "bound_ms", "library_ms")}},
-         "cms_update": {k: result["sketch_api"][k] for k in (
-             "rows", "cells", "touched", "ms", "device_ms", "plain_ms",
-             "bound_ms", "library_ms", "max_abs_err", "api_k1_launches")}},
-        {"name": "arena_claim_scatter", "route": "cuda",
+                 "bound_ms", "library_ms")}}},
+        {"name": "cms_update", "route": "cuda",
+         "source": "zipkin_tpu_torch/csrc/cms_update.cu",
+         "replaces": "zipkin_tpu/ops/pallas_kernels.py:151",
+         "launches": cms_row["launches"]["cms_update"],
+         "launches_by_path": {p: v["cms_update"] for p, v in by_path.items()},
+         **{k: cms_row[k] for k in (
+             "max_abs_err", "ms", "host_us", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "library",
+             "library_flat_ms", "library_flat", "int32_buckets")},
+         "shape": {k: cms_row[k] for k in (
+             "rows", "keys", "cells", "touched", "bucket_dtype")}},
+        *({"name": half, "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/arena_claim_scatter.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:247",
-         "launches": result["kernel_launches"]["arena_claim"],
-         "launches_by_path": {p: {h: v[h] for h in arena["halves"]}
-                              for p, v in by_path.items()},
+         "launches": result["kernel_launches"][half],
+         "launches_by_path": {p: v[half] for p, v in by_path.items()},
          "steps_by_path": steps_by_path,
-         "max_abs_err": arena["max_abs_err"], "ms": arena["ms"],
-         "device_ms": arena["device_ms"],
-         "plain_ms": arena["plain_ms"],
-         "bound_ms": arena["bound_ms"], "bound_by": "bytes",
-         "library_ms": None,
-         "halves": {h: {**v, "launches": result["kernel_launches"][h]}
-                    for h, v in arena["halves"].items()},
+         "max_abs_err": arena["max_abs_err"],
+         **{k: arena["halves"][half][k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library")},
+         "arena_claim_scatter": {k: arena[k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms")},
          "shape": {"arena_rows": arena["arena_rows"],
-                   "rows": arena["rows"], "buckets": arena["buckets"]}},
+                   "rows": arena["rows"], "buckets": arena["buckets"]}}
+          for half in ("arena_claim", "arena_write")),
         {"name": "paged_page_gather", "route": "cuda",
          "source": "zipkin_tpu_torch/csrc/paged_page_gather.cu",
          "replaces": "zipkin_tpu/ops/pallas_kernels.py:357",
@@ -7878,7 +8167,9 @@ def main() -> int:
                               for p, v in by_path.items()},
          "steps_by_path": steps_by_path,
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
-         "uncached_ms": gather["uncached_ms"],
+         **{k: gather[k] for k in (
+             "host_us", "uncached_ms", "table_check_us",
+             "attribute_key_check_us")},
          "device_ms": gather["device_ms"],
          "plain_ms": gather["plain_ms"],
          "bound_ms": gather["bound_ms"], "bound_by": "bytes",

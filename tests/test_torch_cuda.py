@@ -169,6 +169,105 @@ def test_cuda_histogram_many_raises_rather_than_falls_back(cuda):
     assert int(c.sum()) == 0
 
 
+# The count-min update's edge inputs (tests/test_torch_kernels.py holds
+# the same cases against the JAX function on the CPU), here at the
+# sketch API's shape: 4 x 114,688 keys into 4 x 2^16 cells.
+_CMS_CASES = ("site", "negative", "past_w_middle_row", "past_w_last_row",
+              "wrap", "d1", "n0", "int64", "int64_wide", "one_cell")
+
+
+def _cms_inputs(case, seed, d=4, w=1 << 16, n=114_688):
+    """(counts, buckets) as CPU tensors for one case of ``_CMS_CASES``:
+    masked keys, negative buckets, buckets >= W in a middle row and in
+    the last row (past D x W), flat indices that wrap past 2^31, one
+    row, no key, int64 buckets inside and outside int32, every key on
+    one cell (the warp aggregation)."""
+    rng = np.random.default_rng(seed)
+    d = 1 if case == "d1" else d
+    n = 0 if case == "n0" else n
+    counts = (np.arange(d * w) % 7).astype(np.int32).reshape(d, w)
+    rows = rng.integers(0, w, (d, n))
+    if case in ("site", "d1", "int64"):
+        rows[:, rng.random(n) < 0.2] = -1
+    elif case == "negative":
+        pick = rng.random((d, n)) < 0.3
+        rows[pick] = rng.choice([-1, -5, -w, -2**31], pick.sum())
+    elif case == "past_w_middle_row":
+        rows[1, ::5] = w + rng.integers(0, 2 * w, rows[1, ::5].shape)
+    elif case == "past_w_last_row":
+        rows[-1, ::5] = w + rng.integers(0, 3 * w, rows[-1, ::5].shape)
+    elif case == "wrap":
+        rows[2, ::7] = 2**31 - 1 - rng.integers(0, w, rows[2, ::7].shape)
+    elif case == "int64_wide":
+        rows[:, ::3] += rng.choice([2**32, -2**32, 2**40], rows[:, ::3].shape)
+        rows[:, 1::11] = 2**31 + rng.integers(0, w, rows[:, 1::11].shape)
+    elif case == "one_cell":
+        rows[:] = 3
+    wide = case in ("int64", "int64_wide")
+    return (torch.from_numpy(counts),
+            torch.from_numpy(rows.astype(np.int64 if wide else np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", _CMS_CASES)
+def test_cuda_cms_update_matches_twin(cuda, case, weighted):
+    counts, rows = _cms_inputs(case, _CMS_CASES.index(case))
+    w = (torch.from_numpy(np.random.default_rng(7).integers(
+        1, 4, rows.shape[1]).astype(np.int32)) if weighted else None)
+    want = K.cms_update_plain(counts.clone(), rows, w)
+    before = dict(K.LAUNCHES)
+    got = K.cms_update(counts.to(cuda), rows.to(cuda),
+                       None if w is None else w.to(cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {**before, "cms_update": before["cms_update"]
+                          + int(rows.numel() > 0)}
+    np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_cms_update_is_one_kernel_and_no_op(cuda):
+    """A call on the card is one launch of the count-min kernel: the
+    profile of 20 calls holds no aten op and no other device activity,
+    and the launch count rises by one a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts, rows = _cms_inputs("site", 0)
+    counts, rows = counts.to(cuda), rows.to(cuda)
+    w = torch.ones(rows.shape[1], dtype=torch.int32, device=cuda)
+    for weights in (None, w):
+        K.cms_update(counts, rows, weights)  # warm: build and load
+        torch.cuda.synchronize()
+        before = K.LAUNCHES["cms_update"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                K.cms_update(counts, rows, weights)
+            torch.cuda.synchronize()
+        assert K.LAUNCHES["cms_update"] == before + 20
+        events = list(prof.events())
+        assert not [e.name for e in events if e.name.startswith("aten::")]
+        device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        assert 0 < len(device) <= 20
+        assert all("cms_update" in name for name in device), set(device)
+
+
+@pytest.mark.cuda
+def test_cuda_cms_update_raises_rather_than_falls_back(cuda):
+    c = torch.zeros((4, 256), dtype=torch.int32, device=cuda)
+    r = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(TypeError):
+        K.cms_update(c, r.float())
+    with pytest.raises(ValueError, match="device"):
+        K.cms_update(c, r.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        K.cms_update(c, r, torch.ones(4, dtype=torch.int32, device=cuda))
+    assert K.LAUNCHES == before
+    assert int(c.sum()) == 0
+
+
 def _on(args, device):
     return tuple(a.to(device) if torch.is_tensor(a) else a for a in args)
 
@@ -317,6 +416,48 @@ def test_cuda_page_gather_matches_twin(cuda, page_rows, k):
     torch.cuda.synchronize()
     assert K.LAUNCHES["paged_page_gather"] == before + 1
     assert got.dtype == torch.int64 and got.shape == (14, k * page_rows)
+    np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
+
+
+def _odd_gather_case(shape, seed=3):
+    """Columns and a page list for the unusual K3 shapes: ``rows8``
+    (8-row pages), ``int32`` and ``int64`` (one element type only),
+    ``misaligned`` (every column a view that starts 4 or 8 bytes past a
+    16-byte boundary, beside aligned ones). Holes at both ends and a
+    page past the last."""
+    rng = np.random.default_rng(seed)
+    R = 8 if shape == "rows8" else 128
+    n_pages = 64
+    cap = n_pages * R
+    kinds = {"int32": "i" * 14, "int64": "l" * 14}.get(shape,
+                                                      "lllillllllllil")
+    cols = []
+    for i, kind in enumerate(kinds):
+        dt = np.int32 if kind == "i" else np.int64
+        lo, hi = (-2**31, 2**31) if kind == "i" else (-2**62, 2**62)
+        base = torch.from_numpy(rng.integers(lo, hi, cap + 4).astype(dt))
+        off = (1 + i % 3) if shape == "misaligned" and i % 2 else 0
+        cols.append(base[off:off + cap])
+    pages = rng.integers(0, n_pages, 40).astype(np.int32)
+    pages[[0, 1, 20, 39]] = [-1, n_pages, -5, -1]
+    return cols, torch.from_numpy(pages), R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["rows8", "int32", "int64", "misaligned"])
+def test_cuda_page_gather_unusual_shapes(cuda, shape):
+    cols, pages, R = _odd_gather_case(shape)
+    want = K.paged_page_gather(cols, pages, R)
+    dcols = [c.to(cuda) for c in cols]
+    if shape == "misaligned":  # views on the card at the same offsets
+        dcols = [torch.empty(c.numel() + 4, dtype=c.dtype, device=cuda)[
+            c.storage_offset():c.storage_offset() + c.numel()].copy_(c)
+            for c in cols]
+        assert any(c.data_ptr() % 16 for c in dcols)
+    before = K.LAUNCHES["paged_page_gather"]
+    got = K.paged_page_gather(dcols, pages.to(cuda), R)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_page_gather"] == before + 1
     np.testing.assert_array_equal(want.numpy(), got.cpu().numpy())
 
 
@@ -1096,7 +1237,7 @@ def test_cuda_standby_and_replica_follow_a_card_primary(cuda, tmp_path):
 @pytest.mark.cuda
 def test_cuda_sketch_apis_match_cpu(cuda):
     """Each standalone sketch API on the card and on the CPU, the same
-    inputs, equal bitwise: count-min (int32 through the flat-histogram
+    inputs, equal bitwise: count-min (int32 through the ``cms_update``
     kernel, one launch an update; float32 through ``index_add_``), HLL,
     the banked log-histogram and its quantiles, top-k counters with
     forced ties, ``topk_from_cms`` and the moments helpers."""
@@ -1116,9 +1257,9 @@ def test_cuda_sketch_apis_match_cpu(cuda):
 
     def run(dev):
         t = (lambda a: torch.from_numpy(a).to(dev))
-        before = K.LAUNCHES["flat_histogram"]
+        before = K.LAUNCHES["cms_update"]
         sk = cms.update(cms.init(device=dev), hi, lo)
-        cms_launches = K.LAUNCHES["flat_histogram"] - before
+        cms_launches = K.LAUNCHES["cms_update"] - before
         skw = cms.update(sk, hi, lo, weights=t(w))
         skf = cms.update(cms.init(dtype=torch.float32, device=dev), hi, lo)
         reg = hll.update(hll.init(device=dev), hi, lo, valid=t(ok))

@@ -118,28 +118,107 @@ def test_histogram_many_twin_matches_pallas_and_xla(n_sites):
     assert K.LAUNCHES == before  # twins never count
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-def test_cms_update_matches_pallas_cms_update(weighted):
+# Edge inputs of the count-min update, made by ``_cms_case``.
+_CMS_CASES = ("site", "negative", "past_w_middle_row", "past_w_last_row",
+              "wrap", "d1", "n0", "int64", "int64_wide", "one_cell")
+
+
+def _cms_case(case, seed, d=4, w=256, n=700):
+    """(counts [D, W], buckets [D, N]) as numpy: ``site`` the cms site's
+    inputs (masked keys -1 in every row); ``negative`` assorted negative
+    buckets; ``past_w_*`` buckets >= W in row 1 (they land in rows 2-3)
+    or in the last row (past D x W: dropped); ``wrap`` buckets near
+    2^31 - 1 in row 2, whose flat index wraps negative (dropped);
+    ``d1`` one row; ``n0`` no key; ``int64`` int64 buckets; ``int64_wide``
+    int64 buckets outside int32, cut to their low 32 bits; ``one_cell``
+    every key on one cell."""
+    rng = np.random.default_rng(seed)
+    d = 1 if case == "d1" else d
+    n = 0 if case == "n0" else n
+    counts = rng.integers(0, 9, (d, w)).astype(np.int32)
+    rows = rng.integers(0, w, (d, n))
+    if case in ("site", "d1", "int64"):
+        rows[:, rng.random(n) < 0.2] = -1
+    elif case == "negative":
+        pick = rng.random((d, n)) < 0.3
+        rows[pick] = rng.choice([-1, -5, -w, -2**31], pick.sum())
+    elif case == "past_w_middle_row":
+        rows[1, ::5] = w + rng.integers(0, 2 * w, rows[1, ::5].shape)
+    elif case == "past_w_last_row":
+        rows[-1, ::5] = w + rng.integers(0, 3 * w, rows[-1, ::5].shape)
+    elif case == "wrap":
+        rows[2, ::7] = 2**31 - 1 - rng.integers(0, w, rows[2, ::7].shape)
+    elif case == "int64_wide":
+        rows[:, ::3] += rng.choice([2**32, -2**32, 2**40], rows[:, ::3].shape)
+        rows[:, 1::11] = 2**31 + rng.integers(0, w, rows[:, 1::11].shape)
+    elif case == "one_cell":
+        rows[:] = 3
+    wide = case in ("int64", "int64_wide")
+    return counts, rows.astype(np.int64 if wide else np.int32)
+
+
+def _cms_reference(counts, rows, w):
+    """``pallas_kernels.cms_update``'s result, held to the XLA scatter of
+    the flat index it builds. The Pallas kernel takes no cell past D x
+    W (interpret mode clamps such a row into the table's last 128
+    cells; on a TPU it is out of bounds), so it gets -1 there: the
+    function's drop, which the XLA formulation shows. int64 buckets
+    outside int32 go in cut to int32, the port's contract."""
+    d, width = counts.shape
+    r32 = rows.astype(np.int32)
+    flat = (np.where(r32 >= 0, r32 + np.arange(d)[:, None] * width, -1)
+            .astype(np.int64) + 2**31) % 2**32 - 2**31
+    jw = None if w is None else jnp.asarray(w)
+    xla = np.asarray(pk.scatter_histogram_xla(
+        jnp.asarray(counts.reshape(-1)),
+        jnp.asarray(flat.reshape(-1).astype(np.int32)),
+        None if w is None else jnp.asarray(np.tile(w, d))))
+    fits = np.array_equal(r32, rows)
+    ref_rows = np.where(flat >= d * width, -1, rows if fits else r32)
+    want = np.asarray(pk.cms_update(jnp.asarray(counts),
+                                    jnp.asarray(ref_rows), jw, tile=256))
+    np.testing.assert_array_equal(want.reshape(-1), xla)
+    return want
+
+
+@pytest.mark.parametrize("case,weighted", [
+    pytest.param(c, wt, id=str(wt) if c == "site"
+                 else f"{c}-{'weights' if wt else 'ones'}")
+    for c in _CMS_CASES for wt in (False, True)])
+def test_cms_update_matches_pallas_cms_update(case, weighted):
     """``kernels.cms_update`` (its twin on the CPU) against
-    ``pallas_kernels.cms_update`` in interpret mode, on the cms site's
-    inputs: buckets in each row, masked keys -1 in every row."""
-    counts, rows, _ = _site(90, "cms", 4 * 256, 700, False)
+    ``pallas_kernels.cms_update`` in interpret mode on the edge inputs
+    of ``_cms_case``, without and with weights."""
+    counts, rows = _cms_case(case, 90 + _CMS_CASES.index(case))
     w = (np.random.default_rng(91).integers(1, 4, rows.shape[1]).astype(
         np.int32) if weighted else None)
-    want = np.asarray(pk.cms_update(
-        jnp.asarray(counts.reshape(4, -1)), jnp.asarray(rows),
-        None if w is None else jnp.asarray(w), tile=256))
-    got = K.cms_update(torch.from_numpy(counts.reshape(4, -1).copy()),
-                       torch.from_numpy(rows),
-                       None if w is None else torch.from_numpy(w))
+    want = _cms_reference(counts, rows, w)
+    tw = None if w is None else torch.from_numpy(w)
+    before = dict(K.LAUNCHES)
+    got = K.cms_update(torch.from_numpy(counts.copy()),
+                       torch.from_numpy(rows), tw)
     np.testing.assert_array_equal(want, got.numpy())
-    flat = K.cms_flat_index(torch.from_numpy(rows), 256)
-    plain = K.histogram_update_plain(torch.from_numpy(counts.copy()), flat,
-                                     None if w is None else torch.from_numpy(
-                                         np.broadcast_to(w, rows.shape)
-                                         .reshape(-1).copy()))
-    np.testing.assert_array_equal(want.reshape(-1), plain.numpy())
-    assert K.LAUNCHES["flat_histogram"] == 0  # twins never count
+    assert K.LAUNCHES == before  # the CPU route is the twin; it never counts
+
+
+def test_cms_update_checks_inputs():
+    c = torch.zeros((4, 256), dtype=torch.int32)
+    r = torch.zeros((4, 10), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        K.cms_update(c, r.float())
+    with pytest.raises(TypeError):
+        K.cms_update(c.long(), r)
+    with pytest.raises(TypeError):
+        K.cms_update(c, r, torch.ones(10, dtype=torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        K.cms_update(c, r, torch.ones((4, 10), dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\[D, N\]"):
+        K.cms_update(c, r[:3])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.cms_update(c, torch.zeros((4, 20), dtype=torch.int32)[:, ::2])
+    with pytest.raises(ValueError, match="device"):
+        K.cms_update(c, r.to("meta"))
+    assert not c.any()
 
 
 def test_store_plain_scatter_matches_xla():

@@ -309,22 +309,45 @@ def _jax_page_gather_int64(cols64: np.ndarray, pages, R: int):
         out.reshape(n, 2, -1).transpose(0, 2, 1)).view(np.int64)[..., 0]
 
 
-@pytest.mark.parametrize("source", ["store", "random"])
+def _random_cols(rng, cap, kinds):
+    """Span-like columns of ``cap`` rows, one a character of ``kinds``:
+    ``l`` int64, ``i`` int32."""
+    return [rng.integers(-2**62, 2**62, cap) if k == "l" else
+            rng.integers(-2**31, 2**31, cap).astype(np.int32)
+            for k in kinds]
+
+
+@pytest.mark.parametrize("source", ["store", "random", "holes",
+                                    "int32_8_rows", "int64_only"])
 def test_page_gather_twin_matches_pallas(driven, source):
+    """The page gather (its twin on the CPU) against the Pallas kernel in
+    interpret mode, on the driven store's columns and on random ones:
+    mixed columns, hole pages at both ends and past the last page,
+    8-row pages of int32 columns, int64 columns only. The Pallas kernel
+    takes no page past the last (its index map would clamp it); the
+    port's contract makes such a page a hole, so the reference gets -1
+    there."""
+    rng = np.random.default_rng(4)
     if source == "store":
         st = driven[0].state
         cols = [np.asarray(getattr(st, c)) for c in dev.SPAN_MAT_COLS]
         R = st.config.page_rows
         pages = np.asarray([3, -1, 0, 7, -1, 5, 2, -1], np.int32)
+    elif source == "int32_8_rows":
+        R = 8
+        cols = _random_cols(rng, 64 * R, "i" * 14)
+        pages = np.asarray([-1, 63, 0, 64, 9, -7, 9, 1, 100, -1], np.int32)
     else:
-        rng = np.random.default_rng(4)
         R, cap = 256, 1 << 12
-        cols = [rng.integers(-2**62, 2**62, cap) if i % 3 else
-                rng.integers(-2**31, 2**31, cap).astype(np.int32)
-                for i in range(14)]
-        pages = np.asarray([-1, 15, 0, -1, 9, 9, 1, -1], np.int32)
+        cols = _random_cols(rng, cap, "l" * 14 if source == "int64_only"
+                            else "illilllilllill")
+        pages = (np.asarray([-1, -1, 16, 15, 0, -3, 9, 9, 1, 2**31 - 1, -1],
+                            np.int32) if source == "holes"
+                 else np.asarray([-1, 15, 0, -1, 9, 9, 1, -1], np.int32))
+    n_pages = cols[0].shape[0] // R
     want = _jax_page_gather_int64(
-        np.stack([c.astype(np.int64) for c in cols]), pages, R)
+        np.stack([c.astype(np.int64) for c in cols]),
+        np.where(pages < n_pages, pages, -1).astype(np.int32), R)
     tcols = [torch.from_numpy(np.array(c)) for c in cols]
     got = K.paged_page_gather(tcols, torch.from_numpy(pages), R)
     assert got.dtype == torch.int64
@@ -332,6 +355,33 @@ def test_page_gather_twin_matches_pallas(driven, source):
     np.testing.assert_array_equal(
         want, K.paged_page_gather_plain(tcols, torch.from_numpy(pages),
                                         R).numpy())
+
+
+def test_gather_table_cache_follows_column_identity():
+    """K3's host table (built the same way for CPU tensors): a repeat
+    call with the same column tensors hits, in any sequence object; a
+    column replaced by another tensor, or another page size, misses;
+    an entry leaves the cache when one of its columns is freed."""
+    cpu = torch.device("cpu")
+    cols = [torch.arange(64, dtype=torch.int64) for _ in range(3)]
+    cols.append(torch.arange(64, dtype=torch.int32))
+    K._GATHER_TABLES.clear()
+    first = K._gather_table(cols, 8, cpu)
+    assert K._gather_table(tuple(cols), 8, cpu) is first
+    assert K._gather_table(cols, 16, cpu) is not first
+    other = cols[:2] + [cols[2].clone()] + cols[3:]
+    table = K._gather_table(other, 8, cpu)
+    assert table is not first and table[0][2] == other[2].data_ptr()
+    assert list(table[1]) == [8, 8, 8, 4] and table[2] == 64
+    assert len(K._GATHER_TABLES) == 3
+    del other[2], table
+    assert len(K._GATHER_TABLES) == 2
+    assert K._gather_table(cols, 8, cpu) is first
+    with pytest.raises(ValueError, match="power of two"):
+        K._gather_table(cols, 12, cpu)
+    with pytest.raises(TypeError):
+        K._gather_table(cols[:3] + [cols[3].float()], 8, cpu)
+    K._GATHER_TABLES.clear()
 
 
 def test_paged_store_reads_match_reference(driven):

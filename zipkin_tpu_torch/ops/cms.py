@@ -8,10 +8,10 @@ width]`` count array and ``merge`` is ``+``, as in
 mask). ``indices`` is the row-hash family the store's ingest step
 inlines, bit-identical to the reference's ``_indices``.
 
-``update`` on int32 counts with int32 (or no) weights is one flat
-histogram over ``depth x width`` (``kernels.cms_update``: one launch of
-the hand-written kernel on the card); other dtypes scatter with
-``index_add_``. Keys are numpy uint32 columns or int64 tensors holding
+``update`` on int32 counts with int32 [n] (or no) weights is
+``kernels.cms_update`` over the int64 buckets as ``indices`` gives them
+(one launch of the hand-written kernel on the card); other dtypes and
+weight shapes scatter with ``index_add_``. Keys are numpy uint32 columns or int64 tensors holding
 uint32 words (``hashing.words``).
 """
 
@@ -68,9 +68,11 @@ def update(sketch: CountMin, key_hi, key_lo, weights=None) -> CountMin:
     counts = sketch.counts.clone()
     if weights is not None:
         weights = torch.as_tensor(weights, device=counts.device)
-    if counts.dtype == torch.int32 and (
-            weights is None or weights.dtype == torch.int32):
-        K.cms_update(counts, idx.to(torch.int32), weights)
+    if counts.dtype == torch.int32 and (weights is None or (
+            weights.dtype == torch.int32
+            and weights.shape == idx.shape[1:])):
+        K.cms_update(counts, idx,
+                     None if weights is None else weights.contiguous())
         return CountMin(counts)
     flat = K.cms_flat_index(idx, sketch.width).to(torch.int64)
     w = (torch.ones(idx.shape, dtype=counts.dtype, device=counts.device)

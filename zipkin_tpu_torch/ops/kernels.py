@@ -3,8 +3,13 @@
 - ``histogram_update_many`` -> ``csrc/flat_histogram.cu``: replaces the
   TPU kernel ``zipkin_tpu/ops/pallas_kernels.py:flat_histogram``; one
   launch adds up to eight flat histograms (the ingest step's seven
-  sites); ``histogram_update`` is its one-site call, and ``cms_update``
-  (``pallas_kernels.cms_update``) a count-min table's update as one.
+  sites); ``histogram_update`` is its one-site call.
+- ``cms_update`` -> ``csrc/cms_update.cu``: replaces the TPU function
+  ``pallas_kernels.cms_update`` (a count-min table's update, one
+  flat_histogram over depth x width there); one launch reads the
+  [depth, n] buckets in place, with no flat index built first. The
+  standalone sketch API takes it; the ingest step fuses its own
+  count-min site into ``histogram_update_many``.
 - ``arena_claim`` + ``arena_write`` -> ``csrc/arena_claim_scatter.cu``:
   together they replace ``zipkin_tpu/ops/pallas_kernels.py:
   arena_claim_scatter`` (``arena_claim_scatter`` here calls the two). The
@@ -23,7 +28,9 @@ Each wrapper takes its plain PyTorch twin ONLY for tensors on the CPU
 raises; no path falls back. ``LAUNCHES`` counts kernel launches per
 wrapper (the twins do not count), so a run can show the store went
 through the kernels. Under a step census (``store/census.py``) each
-wrapper also counts its call there, once, and runs as it always does.
+wrapper the step calls also counts its call there, once, and runs as
+it always does (``cms_update`` is off the step and outside the
+census).
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 plain-C shared libraries under ``build/zipkin_tpu_torch/`` next to the
@@ -36,11 +43,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import operator
 import os
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Dict
 
@@ -49,10 +56,11 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "zipkin_tpu_torch"
-SOURCES = ("flat_histogram", "arena_claim_scatter", "paged_page_gather")
-INGEST_SOURCES = SOURCES[:2]
-QUERY_SOURCES = SOURCES[2:]
-KERNELS = ("flat_histogram", "arena_claim", "arena_write",
+SOURCES = ("flat_histogram", "cms_update", "arena_claim_scatter",
+           "paged_page_gather")
+INGEST_SOURCES = ("flat_histogram", "arena_claim_scatter")
+QUERY_SOURCES = ("paged_page_gather",)
+KERNELS = ("flat_histogram", "cms_update", "arena_claim", "arena_write",
            "paged_page_gather")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -63,6 +71,8 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "zt_flat_histogram_multi": [ctypes.POINTER(ctypes.c_longlong),
                                 ctypes.c_int, _P],
+    "zt_cms_update": [_P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_longlong, _P],
     "zt_arena_claim": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
                        _P],
     "zt_arena_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -319,31 +329,89 @@ def flat_histogram(idx: torch.Tensor, weights: torch.Tensor,
 
 
 def cms_flat_index(idx_rows: torch.Tensor, width: int) -> torch.Tensor:
-    """The flat int32 index into a [D, width] table of per-row buckets
-    ``idx_rows`` [D, N] (row r's bucket plus r x width; -1 where a
-    bucket is negative), as ``pallas_kernels.cms_update`` flattens (in
-    int32, as it does). No fill kernel: a profile finds its calls by
-    the flush's fill."""
+    """The plain twin's flat int32 index into a [D, width] table of
+    per-row buckets ``idx_rows`` [D, N] (row r's bucket plus r x width;
+    -1 where a bucket is negative), as ``pallas_kernels.cms_update``
+    flattens (in int32, as it does; int64 buckets cut to int32 first).
+    No fill kernel: a profile finds its calls by the flush's fill."""
     idx = idx_rows.to(torch.int32)
     rows = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
     flat = idx + (rows * width)[:, None]
     return flat.masked_fill_(idx < 0, -1).reshape(-1)
 
 
+def cms_update_plain(counts: torch.Tensor, idx_rows: torch.Tensor,
+                     weights=None) -> torch.Tensor:
+    """Plain twin of ``cms_update``: ``histogram_update_plain`` over
+    ``cms_flat_index`` with the weights repeated for every row."""
+    if weights is not None:
+        weights = weights.repeat(idx_rows.shape[0])
+    return histogram_update_plain(
+        counts, cms_flat_index(idx_rows, counts.shape[1]), weights)
+
+
+_CMS_BUCKETS = (torch.int32, torch.int64)
+
+
+def _check_cms(counts, idx_rows, weights) -> None:
+    """Raise unless ``counts`` is int32 [D, W] (D x W < 2^31),
+    ``idx_rows`` int32 or int64 [D, N] and ``weights`` None or int32
+    [N], all contiguous on one device. The common case costs one
+    boolean chain over each shape read once; the message is built on
+    failure."""
+    cs, rs = counts.shape, idx_rows.shape
+    if (counts.dtype == torch.int32 and idx_rows.dtype in _CMS_BUCKETS
+            and len(cs) == 2 and len(rs) == 2 and cs[0] == rs[0]
+            and cs[0] * cs[1] < 1 << 31 and counts.is_contiguous()
+            and idx_rows.is_contiguous()
+            and idx_rows.device == counts.device
+            and (weights is None or (
+                weights.dtype == torch.int32
+                and weights.shape == rs[1:] and weights.is_contiguous()
+                and weights.device == counts.device))):
+        return
+    dev = counts.device
+    if idx_rows.dtype not in _CMS_BUCKETS:
+        raise TypeError(f"idx_rows: expected int32 or int64, got "
+                        f"{idx_rows.dtype}")
+    if len(cs) != 2 or len(rs) != 2 or cs[0] != rs[0]:
+        raise ValueError(f"cms_update: counts [D, W] and idx_rows [D, N] "
+                         f"expected, got {tuple(cs)} and {tuple(rs)}")
+    if cs[0] * cs[1] >= 1 << 31:
+        raise ValueError("cms_update: D x W must be below 2^31")
+    _check(counts, "counts", torch.int32, dev)
+    _check(idx_rows, "idx_rows", idx_rows.dtype, dev)
+    if weights is not None:
+        _check(weights, "weights", torch.int32, dev, rs[1:])
+
+
 def cms_update(counts: torch.Tensor, idx_rows: torch.Tensor,
                weights=None) -> torch.Tensor:
     """Count-min update, the function of ``pallas_kernels.cms_update``:
     int32 ``counts`` [D, W] += the per-row scatter of ``idx_rows`` [D, N]
-    (a key's bucket in each row) with ``weights`` [N] (None: ones), as
-    ONE flat histogram over D x W: one kernel launch on the card, the
-    plain twin (``histogram_update_plain`` over the same flat index) on
-    the CPU. In place; returns ``counts``."""
-    d, w = counts.shape
-    flat = cms_flat_index(idx_rows, w)
-    if weights is not None:
-        weights = torch.broadcast_to(weights.to(counts.dtype),
-                                     (d, idx_rows.shape[1])).reshape(-1)
-    return histogram_update(counts, flat, weights)
+    (a key's bucket in each row, int32 or int64; int64 cut to int32 as
+    ``.to(torch.int32)`` cuts it) with ``weights`` int32 [N] (None:
+    ones). Narrower than ``pallas_kernels.cms_update``, which broadcasts
+    and casts any weights: weights of another dtype or shape raise
+    (``cms.update`` routes them to ``index_add_``). Row r's bucket b lands in flat cell b + r x W (int32, so a
+    bucket >= W lands in the next row); negative buckets and cells past
+    D x W are dropped. In place; returns ``counts``. One kernel launch
+    on the card (none when D or N is 0), the plain twin
+    (``cms_update_plain``) on the CPU."""
+    _check_cms(counts, idx_rows, weights)
+    if not counts.is_cuda:
+        return cms_update_plain(counts, idx_rows, weights)
+    d, n = idx_rows.shape
+    if d == 0 or n == 0:
+        return counts
+    index = counts.get_device()
+    rc = _lib("cms_update").zt_cms_update(
+        counts.data_ptr(), idx_rows.data_ptr(), idx_rows.element_size(),
+        None if weights is None else weights.data_ptr(), d, counts.shape[1],
+        n, torch._C._cuda_getCurrentRawStream(index))
+    _raise_on(rc, "cms_update")
+    LAUNCHES["cms_update"] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +573,7 @@ def arena_claim_scatter(entries: torch.Tensor, bucket: torch.Tensor,
 
 PAGE_GATHER_MAX_COLS = 16
 _GATHER_TABLES: Dict[tuple, tuple] = {}
-_DTYPE_OF = operator.attrgetter("dtype")
+_GATHER_TABLES_MAX = 8
 
 
 def paged_page_gather_plain(cols, pages: torch.Tensor,
@@ -526,15 +594,18 @@ def paged_page_gather_plain(cols, pages: torch.Tensor,
 
 def _gather_table(cols, page_rows: int, dev):
     """The validated foreign-call table of a column set: (ctypes column
-    pointers, ctypes element sizes, capacity). Cached by each column's
-    data_ptr, dtype, shape and stride (the whole memory the kernel
-    reads), so a repeat call with the same columns runs no per-column
-    check, and a column that was replaced misses."""
-    key = (page_rows, *map(torch.Tensor.data_ptr, cols),
-           *map(_DTYPE_OF, cols), *map(torch.Tensor.size, cols),
-           *map(torch.Tensor.stride, cols))
+    pointers, ctypes element sizes, capacity, the first column's
+    data_ptr, weak references to the columns). Cached by ``page_rows``
+    and the identity of each column tensor: a hit costs one tuple of
+    ids, one lookup and a data_ptr spot-check of the first column, and
+    runs no per-column check. An entry leaves the cache as soon as any
+    of its columns is freed (a weak reference's callback), so the id of
+    a live column in a key never names another tensor; a column that
+    was replaced by another tensor (a step or a restore rebinds leaves)
+    is another id and misses."""
+    key = (page_rows, *map(id, cols))
     hit = _GATHER_TABLES.get(key)
-    if hit is not None:
+    if hit is not None and hit[3] == cols[0].data_ptr():
         return hit
     cap = cols[0].shape[0]
     if len(cols) > PAGE_GATHER_MAX_COLS:
@@ -549,10 +620,15 @@ def _gather_table(cols, page_rows: int, dev):
             raise TypeError(f"cols[{i}]: expected int64 or int32, got "
                             f"{col.dtype}")
         _check(col, f"cols[{i}]", col.dtype, dev, (cap,))
+
+    def drop(_ref):
+        _GATHER_TABLES.pop(key, None)
+
     table = ((ctypes.c_void_p * len(cols))(*(c.data_ptr() for c in cols)),
              (ctypes.c_int * len(cols))(*(c.element_size() for c in cols)),
-             cap)
-    if len(_GATHER_TABLES) >= 8:
+             cap, cols[0].data_ptr(),
+             tuple(weakref.ref(c, drop) for c in cols))
+    if len(_GATHER_TABLES) >= _GATHER_TABLES_MAX:
         _GATHER_TABLES.clear()
     _GATHER_TABLES[key] = table
     return table
@@ -572,9 +648,12 @@ def paged_page_gather(cols, pages: torch.Tensor,
     dev = cols[0].device
     if dev.type == "cpu":
         return paged_page_gather_plain(cols, pages, page_rows)
-    ptrs, sizes, cap = _gather_table(cols, page_rows, dev)
+    ptrs, sizes, cap, _, _ = _gather_table(cols, page_rows, dev)
+    if (pages.dtype != torch.int32 or pages.device != dev
+            or pages.dim() != 1 or not pages.is_contiguous()):
+        _check(pages, "pages", torch.int32, dev)
+        raise ValueError(f"pages: expected 1-D, got {pages.dim()}-D")
     k = pages.shape[0]
-    _check(pages, "pages", torch.int32, dev, (k,))
     out = torch.empty((len(cols), k * page_rows), dtype=torch.int64,
                       device=dev)
     if k == 0:
